@@ -4,26 +4,37 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the hand-written stencil kernel from ``krylovfspssa_tpu_torch/csrc``
-with nvcc, holds it against its plain PyTorch version on the card, and
-drives the port's main path — the box-backend CME solve — through
-``solve_cme_box``/``BoxCmeSolver`` on ``cuda``:
+Builds the hand-written stencil kernels from ``krylovfspssa_tpu_torch/csrc``
+with nvcc, holds each against its plain PyTorch version on the card, and
+drives the port's two solve paths through ``solve_cme_box``/``BoxCmeSolver``
+on ``cuda``:
 
   1. environment: card name and power limit, torch/CUDA versions, kernel
      build time;
-  2. kernel vs plain version at three box geometries (the 2^22-cell
-     Goutsias box, a toggle box, a box smaller than one thread block) in
-     float64 and float32, with timings; plus a small toggle solve on the
-     card against the same solve on the CPU;
-  3. the reference driver TestSolverFromFile: toggle, t=1000, fsp_tol 1e-4,
-     krylov_tol 1e-10 (float64);
-  4. real size: the Goutsias example (reference examples/transcr6d.f90) at
-     its reference tolerances to t=10, which ends in a 2^22-cell box.
+  2. ``box_stencil`` vs its plain version at three box geometries (the
+     2^22-cell Goutsias box, a toggle box, a box smaller than one thread
+     block) in float64 and float32, with timings; plus a small toggle solve
+     on the card against the same solve on the CPU;
+  3. separable models (``box_stencil``): the reference driver
+     TestSolverFromFile — toggle, t=1000, fsp_tol 1e-4, krylov_tol 1e-10
+     (float64) — and the Goutsias example (reference
+     examples/transcr6d.f90) at its reference tolerances to t=10, which
+     ends in a 2^22-cell box;
+  4. ``direct_stencil`` vs its plain version on the 2^22-cell Goutsias box
+     (also against ``box_stencil``: the model is separable) and a 512x512
+     ``toggle_programmatic`` box, in float64 and float32, with timings;
+  5. custom propensities (``direct_stencil``): the CUSTOMPROP driver
+     (reference examples/toggle.f90: ``toggle_programmatic``, t=100,
+     fsp_tol 1e-4, krylov_tol 1e-10), and ``ge5d`` at real size through the
+     library's callable and through ``models/ge5d_model.input`` (separable,
+     ``box_stencil``), which must agree; then ``direct_stencil`` vs its
+     plain version at the box the ge5d solve reached.
 
-Each phase prints its own lines with its wall time.  Any failure raises
-and exits non-zero.  The last lines are a JSON record of the kernels, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.
+Each solve path (3 and 5) runs with the kernels' launch counts set to 0
+just before it and read just after.  Each phase prints its own lines with
+its wall time.  Any failure raises and exits non-zero.  The last lines are
+a JSON record of the kernels, the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -45,6 +57,11 @@ JAX_GOUTSIAS_T10 = dict(box_volume=1 << 22, box_shape=(32, 4, 4, 64, 32, 4),
 
 F64_RTOL = 1e-12
 F32_RTOL = 1e-5
+
+#: the ge5d scenario of tests/test_models_e2e.py (x0 = 0, fsp_tol 1e-4,
+#: krylov_tol 1e-8, box_min_log2 2) cut from t=2 to t=1: at t=2 the box
+#: outgrows max_box_volume (2^23) in both packages; by t=1 it is 2^23 cells
+GE5D_T = 1.0
 
 
 def _smi() -> str:
@@ -97,7 +114,8 @@ def phase_env():
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
     info = stencil_cuda.build()
-    print(f"[env] box_stencil built in {info.seconds:.2f} s -> {info.path}")
+    print(f"[env] kernels (box_stencil, direct_stencil) built in "
+          f"{info.seconds:.2f} s -> {info.path}")
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"[env]   {line.strip()}")
@@ -187,22 +205,41 @@ def phase_small_solve():
         raise AssertionError(f"cuda and cpu solves differ: L1={l1:.3e}")
 
 
-def _solve(model, t, x0, fsp_tol, krylov_tol):
+def _launches() -> dict:
+    from krylovfspssa_tpu_torch.ops import stencil_cuda
+
+    return {"box_stencil": stencil_cuda.LAUNCHES,
+            "direct_stencil": stencil_cuda.DIRECT_LAUNCHES}
+
+
+def _reset_launches():
+    from krylovfspssa_tpu_torch.ops import stencil_cuda
+
+    stencil_cuda.LAUNCHES = 0
+    stencil_cuda.DIRECT_LAUNCHES = 0
+
+
+def _solve(model, t, x0, fsp_tol, krylov_tol, config=None):
+    """One solve on the card; returns (solver, result, launches of each
+    kernel during the solve, wall seconds)."""
     import torch
 
     from krylovfspssa_tpu_torch import BoxCmeSolver
-    from krylovfspssa_tpu_torch.ops import stencil_cuda
 
-    solver = BoxCmeSolver(model, device="cuda")
-    before = stencil_cuda.LAUNCHES
+    solver = BoxCmeSolver(model, config, device="cuda")
+    before = _launches()
     t0 = time.perf_counter()
     res = solver.solve(t, x0, fsp_tol=fsp_tol, krylov_tol=krylov_tol)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return solver, res, stencil_cuda.LAUNCHES - before, wall
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    return solver, res, launches, wall
 
 
-def _check_solve(tag, solver, res, launches, wsum_lo, wsum_hi):
+def _check_solve(tag, solver, res, launches, wsum_lo, wsum_hi,
+                 kernel="box_stencil"):
+    """The correctness gate of one solve; every matvec went through
+    ``kernel`` and none through the other one."""
     import torch
 
     s = res.stats
@@ -215,9 +252,12 @@ def _check_solve(tag, solver, res, launches, wsum_lo, wsum_hi):
     if not wsum_lo <= res.wsum <= wsum_hi:
         raise AssertionError(f"{tag}: wsum {res.wsum} outside "
                              f"[{wsum_lo}, {wsum_hi}]")
-    if launches < s.nmult:
-        raise AssertionError(f"{tag}: {launches} kernel launches < nmult "
-                             f"{s.nmult}")
+    if launches[kernel] < s.nmult:
+        raise AssertionError(f"{tag}: {launches[kernel]} {kernel} launches "
+                             f"< nmult {s.nmult}")
+    other = sum(n for k, n in launches.items() if k != kernel)
+    if other:
+        raise AssertionError(f"{tag}: {launches} — expected only {kernel}")
 
 
 def _print_solve(tag, solver, res, launches, wall):
@@ -227,6 +267,21 @@ def _print_solve(tag, solver, res, launches, wall):
           f"fsp {s.final_fsp_size} box {res.box.shape} vol {res.box.volume} "
           f"m_eff {solver.m_eff(res.box)} wsum {res.wsum:.10f} "
           f"launches {launches} wall {wall:.2f} s")
+
+
+def _l1(a, b) -> float:
+    """L1 distance of two solve results over the union of their states."""
+    sa = a.states.astype(np.int64)
+    sb = b.states.astype(np.int64)
+    base = int(max(sa.max(), sb.max())) + 1
+    radix = base ** np.arange(sa.shape[1], dtype=np.int64)
+    ka, kb = sa @ radix, sb @ radix
+    keys = np.union1d(ka, kb)
+    pa = np.zeros(keys.size)
+    pb = np.zeros(keys.size)
+    pa[np.searchsorted(keys, ka)] = a.probabilities
+    pb[np.searchsorted(keys, kb)] = b.probabilities
+    return float(np.abs(pa - pb).sum())
 
 
 def phase_toggle():
@@ -304,7 +359,174 @@ def phase_goutsias():
     del solver, res
     _profile("goutsias t=10", (goutsias_model(), 10.0, [[2, 6, 0, 2, 0, 0]],
                                1e-6, 1e-8))
-    return launches
+
+
+def _face_inputs(box, dt, seed=0):
+    """A random mask (60% of cells) with every face of the box switched on
+    — where the kernels' validity tests decide — and random x."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    m = (rng.random(box.volume) < 0.6).reshape(box.shape)
+    for ax in range(len(box.shape)):
+        sl = [slice(None)] * len(box.shape)
+        for edge in (0, -1):
+            sl[ax] = edge
+            m[tuple(sl)] = True
+    mask = torch.as_tensor(m.reshape(-1), device="cuda")
+    x = torch.as_tensor(rng.random(box.volume), dtype=dt, device="cuda")
+    return mask, x
+
+
+def _direct_case(name, model, box):
+    """direct_stencil vs its plain version (and vs make_stencil_matvec, or
+    box_stencil for a separable model) on one geometry in f64 and f32;
+    returns the f64 row."""
+    import torch
+
+    from krylovfspssa_tpu_torch.ops import stencil_cuda
+    from krylovfspssa_tpu_torch.ops.stencil import (
+        _factored_reaction_tables,
+        make_stencil_matvec,
+    )
+
+    separable = _factored_reaction_tables(model, box) is not None
+    row = None
+    for dt, rtol in ((torch.float64, F64_RTOL), (torch.float32, F32_RTOL)):
+        mask, x = _face_inputs(box, dt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pack = stencil_cuda.pack_direct_stencil(model, box, dt, "cuda")
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        kern = lambda m, v: stencil_cuda.direct_stencil(pack, m, v)  # noqa
+        plain = lambda m, v: stencil_cuda._direct_stencil_plain(pack, m, v)  # noqa
+        if separable:  # the destination-form kernel: same y
+            bpack = stencil_cuda.pack_stencil(model, box, dt, "cuda")
+            ref_name = "box_stencil"
+            ref = lambda m, v: stencil_cuda.box_stencil(bpack, m, v)  # noqa
+        else:
+            ref_name = "make_stencil_matvec"
+            ref = make_stencil_matvec(model, box, dt, "cuda")
+        y_k, y_p, y_r = kern(mask, x), plain(mask, x), ref(mask, x)
+        torch.cuda.synchronize()
+        scale = float(torch.max(torch.abs(y_p)))
+        err = float(torch.max(torch.abs(y_k - y_p)))
+        err_r = float(torch.max(torch.abs(y_k - y_r)))
+        ms_k = _time_ms(kern, mask, x)
+        ms_p = _time_ms(plain, mask, x)
+        ms_r = _time_ms(ref, mask, x)
+        R = model.n_reactions
+        # compulsory traffic: x, y and the R fields' words and the mask
+        # byte per cell
+        gbytes = box.volume * ((R + 2) * x.element_size() + 1) / 1e9
+        print(f"[direct] {name} {str(dt)[6:]} vol={box.volume} R={R} "
+              f"max_abs_err={err:.3e} vs plain, {err_r:.3e} vs {ref_name} "
+              f"(limit {rtol:g} x {scale:.3e}) kernel {ms_k * 1e3:.1f} us "
+              f"({gbytes / ms_k * 1e3:.0f} GB/s)  plain {ms_p * 1e3:.1f} us"
+              f"  {ref_name} {ms_r * 1e3:.1f} us; fields built in "
+              f"{build_ms:.1f} ms")
+        if not (err <= rtol * scale and err_r <= rtol * scale):
+            raise AssertionError(
+                f"{name} {dt}: direct_stencil disagrees ({err:.3e} vs "
+                f"plain, {err_r:.3e} vs {ref_name}; limit {rtol:g} x "
+                f"{scale:.3e})"
+            )
+        if row is None:
+            row = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p)
+        del pack
+    return row
+
+
+def phase_direct_kernels():
+    """direct_stencil on the card at the 2^22-cell Goutsias box (forced
+    through the direct form) and a 512x512 toggle_programmatic box; returns
+    the Goutsias f64 row."""
+    from krylovfspssa_tpu_torch.models.library import (
+        goutsias_model,
+        toggle_programmatic_model,
+    )
+
+    t0 = time.perf_counter()
+    flagship = _direct_case(
+        "goutsias-2^22", goutsias_model(),
+        _grown(goutsias_model(), [[2, 6, 0, 2, 0, 0]], [64, 64, 16, 4, 4, 4]))
+    _direct_case(
+        "toggle_programmatic-512x512", toggle_programmatic_model(),
+        _grown(toggle_programmatic_model(), [[0, 0]], [512, 512]))
+    print(f"[direct] wall {time.perf_counter() - t0:.2f} s")
+    return flagship
+
+
+def phase_customprop():
+    """The CUSTOMPROP driver (reference examples/toggle.f90)."""
+    from krylovfspssa_tpu_torch.models.library import (
+        toggle_programmatic_model,
+    )
+
+    args = (toggle_programmatic_model(), 100.0, [[0, 0]], 1e-4, 1e-10)
+    solver, res, launches, wall = _solve(*args)
+    _print_solve("customprop", solver, res, launches, wall)
+    _check_solve("customprop", solver, res, launches, 1 - 1e-4, 1 + 1e-4,
+                 kernel="direct_stencil")
+    # a t=5 window, as for the toggle reference driver
+    _profile("toggle_programmatic t=5",
+             (toggle_programmatic_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
+
+
+def phase_ge5d():
+    """ge5d at real size through the library's custom callable
+    (direct_stencil) and through models/ge5d_model.input (separable,
+    box_stencil, with the library's parameters); returns the box the
+    library solve reached."""
+    import torch
+
+    from krylovfspssa_tpu_torch import SolverConfig, load_model
+    from krylovfspssa_tpu_torch.models.library import ge5d_model
+
+    lib = ge5d_model()
+    inp = load_model(Path(__file__).resolve().parent / "models"
+                     / "ge5d_model.input")
+    inp.reset_parameters(lib.parameters)
+    fsp_tol = 1e-4
+    results = []
+    for tag, model, kernel in (("ge5d-library", lib, "direct_stencil"),
+                               ("ge5d-input", inp, "box_stencil")):
+        torch.cuda.reset_peak_memory_stats()
+        solver, res, launches, wall = _solve(
+            model, GE5D_T, [[0, 0, 0, 0, 0]], fsp_tol, 1e-8,
+            SolverConfig(box_min_log2=2))
+        _print_solve(tag, solver, res, launches, wall)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[{tag}] t={GE5D_T} peak device memory {peak:.2f} GiB")
+        _check_solve(tag, solver, res, launches, 1 - fsp_tol, 1 + fsp_tol,
+                     kernel=kernel)
+        if res.box.volume < 1 << 20:
+            raise AssertionError(f"{tag}: box volume {res.box.volume} < 2^20")
+        results.append(res)
+        del solver
+    l1 = _l1(*results)
+    print(f"[ge5d] library vs .input: L1 {l1:.3e} (limit {2 * fsp_tol:g})")
+    if not l1 <= 2 * fsp_tol:
+        raise AssertionError(f"ge5d library and .input solves differ: "
+                             f"L1 {l1:.3e}")
+    _profile("ge5d-library t=%g" % GE5D_T,
+             (lib, GE5D_T, [[0, 0, 0, 0, 0]], fsp_tol, 1e-8,
+              SolverConfig(box_min_log2=2)))
+    return lib, results[0].box
+
+
+def _path_launches(tag, run, kernels):
+    """Run one solve path with the launch counts set to 0 just before it;
+    the counts read just after must show every kernel of the path."""
+    _reset_launches()
+    out = run()
+    counts = _launches()
+    print(f"[{tag}] launches: {counts}")
+    for k in kernels:
+        if counts[k] == 0:
+            raise AssertionError(f"{tag}: {k} was never launched")
+    return counts, out
 
 
 def main() -> int:
@@ -313,28 +535,55 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from krylovfspssa_tpu_torch.ops import stencil_cuda
 
     torch.cuda.set_device(0)
+    t_start = time.perf_counter()
     smi = phase_env()
     flagship = phase_kernels()
     phase_small_solve()
 
-    # the main path: every launch from here on is a solve's matvec
-    stencil_cuda.LAUNCHES = 0
-    phase_toggle()
-    phase_goutsias()
-    launches = stencil_cuda.LAUNCHES
+    # path 1, separable models: every launch is a solve's box_stencil matvec
+    def separable():
+        phase_toggle()
+        phase_goutsias()
 
+    sep, _ = _path_launches("separable path", separable, ["box_stencil"])
+    if sep["direct_stencil"]:
+        raise AssertionError(f"separable models launched direct_stencil: "
+                             f"{sep}")
+
+    direct_flagship = phase_direct_kernels()
+
+    # path 2, custom propensities: direct_stencil (and box_stencil for the
+    # .input ge5d that the library's ge5d is held against)
+    def custom():
+        phase_customprop()
+        return phase_ge5d()
+
+    cus, (ge5d, ge5d_box) = _path_launches(
+        "custom path", custom, ["direct_stencil", "box_stencil"])
+    _direct_case("ge5d-solve-box", ge5d, ge5d_box)
+
+    print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "box_stencil",
         "route": "cuda",
         "source": "krylovfspssa_tpu_torch/csrc/box_stencil.cu",
         "replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:1149",
-        "launches": launches,
+        "launches": sep["box_stencil"] + cus["box_stencil"],
         "max_abs_err": flagship["max_abs_err"],
         "ms": flagship["ms"],
         "plain_ms": flagship["plain_ms"],
+    }, {
+        "name": "direct_stencil",
+        "route": "cuda",
+        "source": "krylovfspssa_tpu_torch/csrc/direct_stencil.cu",
+        "replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:2153",
+        "also_replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:66",
+        "launches": cus["direct_stencil"],
+        "max_abs_err": direct_flagship["max_abs_err"],
+        "ms": direct_flagship["ms"],
+        "plain_ms": direct_flagship["plain_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

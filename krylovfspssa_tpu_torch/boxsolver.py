@@ -3,7 +3,7 @@
 
 The FSP lives in a masked power-of-two box (boxspace/box.py) and the
 operator is the matrix-free stencil (ops/stencil.py; on CUDA the
-hand-written kernel of ops/stencil_cuda.py).  State-set mutation is
+hand-written kernels of ops/stencil_cuda.py).  State-set mutation is
 elementwise device work:
 
   * drop            -> clear mask bits (no compaction, no re-indexing)
@@ -103,9 +103,15 @@ class BoxCmeSolver:
     """Reusable box-backend solver bound to one model and one device.
 
     ``device`` defaults to ``"cuda"``; the CPU runs only when asked for
-    by name.  On CUDA the stencil matvec is the hand-written kernel (for
-    separable models, in float32 and float64); on the CPU it is the plain
-    PyTorch version.
+    by name.  On CUDA the stencil matvec is a hand-written kernel, in
+    float32 and float64: ``box_stencil`` for separable models,
+    ``direct_stencil`` for the rest (custom propensities, coupled
+    expressions).  On the CPU it is the plain PyTorch version.
+
+    Per box geometry the direct form keeps the R propensity fields on the
+    device (R * volume * itemsize bytes: 671 MB for ge5d, R=10, at 2^23
+    cells in float64).  The basis clamp of :meth:`_geometry_config` does
+    not count them, as in the JAX package.
     """
 
     def __init__(

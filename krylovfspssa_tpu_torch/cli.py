@@ -8,8 +8,9 @@ the flags of the JAX package's ``kfs solve`` plus ``--device`` (default
 ``cuda``); the table backend and multi-device flags are not ported yet and
 raise ``NotImplementedError``.
 
-``kfs-torch models`` lists the built-in model library; ``kfs-torch info``
-prints a model summary.
+``kfs-torch models`` lists the built-in model library (all seven models,
+custom-propensity ones included, solve on both devices); ``kfs-torch
+info`` prints a model summary.
 """
 
 from __future__ import annotations
@@ -70,12 +71,12 @@ def cmd_solve(args) -> int:
     if args.backend != "box":
         raise NotImplementedError(
             "the table backend is not ported yet (ROADMAP.md Queue A, "
-            "slice 3)"
+            "slice 6)"
         )
     if args.devices or args.multihost:
         raise NotImplementedError(
             "multi-device solves are not ported yet (ROADMAP.md Queue A, "
-            "slice 4)"
+            "slice 3)"
         )
     model = _load(args.model, args.params)
     x0 = _parse_state(args.x0, model.n_species)
@@ -169,12 +170,10 @@ def cmd_models(args) -> int:
     from .models.library import LIBRARY, get_model
 
     for name in sorted(LIBRARY):
-        try:
-            m = get_model(name)
-            print(f"{name:28s} {m.n_species} species, "
-                  f"{m.n_reactions} reactions")
-        except NotImplementedError as e:  # custom propensities (kernel B5)
-            print(f"{name:28s} NOT PORTED: {e}")
+        m = get_model(name)
+        kind = "custom propensity" if m.custom_propensity else "expressions"
+        print(f"{name:28s} {m.n_species} species, "
+              f"{m.n_reactions} reactions ({kind})")
     return 0
 
 

@@ -1,17 +1,16 @@
 """Built-in model constructors mirroring the reference examples.
 
 Each function builds the same model as the corresponding reference driver
-(``reference/examples/*.f90`` / ``test/TestSolverFromFile.f90``).
-PyTorch port of ``krylovfspssa_tpu/models/library.py``: every
-expression-defined model is here.  The two custom-propensity models
-(``toggle_programmatic``, ``ge5d``) need the non-separable stencil kernel
-(B5 in ROADMAP.md Queue B) on a GPU and are not ported yet; their factories
-raise ``NotImplementedError``.
+(``reference/examples/*.f90`` / ``test/TestSolverFromFile.f90``), using
+either expression propensities or a custom (batched torch) propensity
+callable — the parity analog of the Fortran ``CUSTOMPROP`` function
+pointers.  PyTorch port of ``krylovfspssa_tpu/models/library.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .model import Model
 
@@ -64,18 +63,33 @@ def toggle_parser_model() -> Model:
     return m
 
 
-def _needs_b5(name: str):
-    raise NotImplementedError(
-        f"model {name!r} has a custom propensity; the PyTorch port runs it "
-        "only after the non-separable stencil kernel is ported (ROADMAP.md "
-        "Queue B, kernel B5)"
-    )
-
-
 def toggle_programmatic_model() -> Model:
-    """The programmatic toggle of ``examples/toggle.f90:23-48,55-69``
-    (custom propensity; not ported yet, see :func:`_needs_b5`)."""
-    _needs_b5("toggle_programmatic")
+    """The programmatic toggle of ``examples/toggle.f90:23-48,55-69``:
+    2 species, 4 reactions, 6 parameters, custom propensity."""
+
+    def prop(states, r, p):
+        # index with ... so the callable works on any batch shape
+        x, y = states[..., 0], states[..., 1]
+        if r == 0:
+            return p[0] + p[1] / (1.0 + y * torch.sqrt(y))  # y**1.5
+        if r == 1:
+            return p[2] * x
+        if r == 2:
+            return p[3] + p[4] / (1.0 + x ** 3.5)
+        return p[5] * y
+
+    m = Model(
+        n_species=2,
+        n_reactions=4,
+        n_parameters=6,
+        stoichiometry=np.array([[1, 0], [-1, 0], [0, 1], [0, -1]]),
+        species_names=["X", "Y"],
+        parameter_names=["b1", "k1", "d1", "b2", "k2", "d2"],
+        custom_propensity=prop,
+        name="toggle_programmatic",
+    )
+    m.reset_parameters([1.0, 100.0, 1.0, 1.0, 100.0, 1.0])
+    return m
 
 
 def repressilator_model() -> Model:
@@ -204,9 +218,92 @@ def bursting_gene_model() -> Model:
 
 
 def ge5d_model() -> Model:
-    """5-species gene expression with a 4-level gene state (custom
-    propensity; not ported yet, see :func:`_needs_b5`)."""
-    _needs_b5("ge5d")
+    """5-species gene expression with a 4-level gene state.
+
+    The shipped ``ge5d_model.input`` is inconsistent (declares 14 reactions
+    and 14 parameters but lists 10 reactions, 19 parameter names, and no
+    propensities).  This constructor builds a consistent interpretation:
+    Gene_state in {0,1,2,3} with up/down switching rates k12,k23,k34 /
+    k21,k32,k43, gene-state-dependent nuclear RNA production g1s/g2s,
+    nuclear/cytoplasmic degradation, and translocation.  Gene-state-dependent
+    rates are expressed with Lagrange indicator polynomials so the model
+    stays within the reference expression grammar.
+    """
+    # parameters (19): k12 k23 k34 k43 k32 k21 g11 g12 g13 g14
+    #                  g21 g22 g23 g24 d1nuc d2nuc d1cyt d2cyt ktransloc
+    GS, R1N, R2N, R1C, R2C = range(5)
+    stoich = np.zeros((10, 5), dtype=np.int64)
+    stoich[0, GS] = 1  # gene state up
+    stoich[1, GS] = -1  # gene state down
+    stoich[2, R1N] = 1
+    stoich[3, R2N] = 1
+    stoich[4, R1N] = -1
+    stoich[5, R2N] = -1
+    stoich[6, R1C] = -1
+    stoich[7, R2C] = -1
+    stoich[8, R1N] = -1
+    stoich[8, R1C] = 1
+    stoich[9, R2N] = -1
+    stoich[9, R2C] = 1
+
+    def ind(s, level):
+        """Indicator of gene state == level for s in {0,1,2,3}."""
+        levels = [0.0, 1.0, 2.0, 3.0]
+        out = 1.0
+        denom = 1.0
+        for l in levels:
+            if l != level:
+                out = out * (s - l)
+                denom *= level - l
+        return out / denom
+
+    def prop(states, r, p):
+        s = states[..., GS]
+        (k12, k23, k34, k43, k32, k21) = p[0:6]
+        g1 = p[6:10]
+        g2 = p[10:14]
+        d1n, d2n, d1c, d2c, ktr = p[14:19]
+        i0, i1, i2, i3 = (ind(s, l) for l in (0.0, 1.0, 2.0, 3.0))
+        if r == 0:  # up-switch
+            return k12 * i0 + k23 * i1 + k34 * i2
+        if r == 1:  # down-switch
+            return k21 * i1 + k32 * i2 + k43 * i3
+        if r == 2:
+            return g1[0] * i0 + g1[1] * i1 + g1[2] * i2 + g1[3] * i3
+        if r == 3:
+            return g2[0] * i0 + g2[1] * i1 + g2[2] * i2 + g2[3] * i3
+        if r == 4:
+            return d1n * states[..., R1N]
+        if r == 5:
+            return d2n * states[..., R2N]
+        if r == 6:
+            return d1c * states[..., R1C]
+        if r == 7:
+            return d2c * states[..., R2C]
+        if r == 8:
+            return ktr * states[..., R1N]
+        return ktr * states[..., R2N]
+
+    m = Model(
+        n_species=5,
+        n_reactions=10,
+        n_parameters=19,
+        stoichiometry=stoich,
+        species_names=["Gene_state", "RNA1_nuc", "RNA2_nuc", "RNA1_cyt", "RNA2_cyt"],
+        parameter_names=[
+            "k12", "k23", "k34", "k43", "k32", "k21",
+            "g11", "g12", "g13", "g14", "g21", "g22", "g23", "g24",
+            "d1nuc", "d2nuc", "d1cyt", "d2cyt", "ktransloc",
+        ],
+        custom_propensity=prop,
+        name="ge5d",
+    )
+    m.reset_parameters(
+        [0.1, 0.2, 0.1, 0.2, 0.1, 0.05,
+         1.0, 4.0, 8.0, 12.0, 0.5, 2.0, 4.0, 6.0,
+         0.5, 0.5, 0.1, 0.1, 0.8]
+    )
+    return m
 
 
 LIBRARY = {

@@ -11,10 +11,12 @@ stored matrix.  This replaces the reference's pointer-chasing FMATVEC
 scatter loop (KrylovSolver.f90:577-607).
 
 This module holds the plain PyTorch versions — the CPU path and the
-reference the CUDA kernel is held against — and the selector.  On a CUDA
-device the solve's matvec is the hand-written Hopper kernel of
-``stencil_cuda.py``.  Every field below is built once per box geometry on
-the solve's device (the JAX package recomputes them inside each jitted
+reference the CUDA kernels are held against — and the selector.  On a CUDA
+device the solve's matvec is a hand-written Hopper kernel of
+``stencil_cuda.py``: ``box_stencil`` for separable propensities,
+``direct_stencil`` for every other model (coupled expressions and custom
+propensity callables).  Every field below is built once per box geometry
+on the solve's device (the JAX package recomputes them inside each jitted
 matvec, where XLA fuses them).
 """
 
@@ -64,6 +66,19 @@ def make_propensity_evaluator(
             ).broadcast_to(flat.shape)
 
     return evaluate
+
+
+def propensity_fields(model: Model, box: BoxSpace, dtype=torch.float64,
+                      device="cpu") -> torch.Tensor:
+    """(R, vol) tensor of every reaction's propensity a_k at every cell of
+    the box, evaluated in float64 through :func:`make_propensity_evaluator`
+    and then cast to ``dtype`` — the operand the direct-form stencil (plain
+    version and ``direct_stencil`` kernel alike) reads."""
+    evaluate = make_propensity_evaluator(model, box, torch.float64, device)
+    flat = torch.arange(box.volume, dtype=torch.int64, device=device)
+    return torch.stack(
+        [evaluate(flat, k) for k in range(model.n_reactions)]
+    ).to(dtype)
 
 
 def _dest_valid(box: BoxSpace, flat: torch.Tensor, k: int) -> torch.Tensor:
@@ -186,9 +201,7 @@ def make_stencil_matvec(model: Model, box: BoxSpace, dtype=torch.float64,
 
         return matvec
 
-    evaluate = make_propensity_evaluator(model, box, dtype, device)
-    flat = torch.arange(box.volume, dtype=torch.int64, device=device)
-    props = [evaluate(flat, k) for k in range(R)]
+    props = propensity_fields(model, box, dtype, device)
     diag = sum(props)
     valid = dest_valid_masks(box, device)
 
@@ -207,10 +220,11 @@ def select_stencil_matvec(model: Model, box: BoxSpace, config, dtype,
                           device="cuda"):
     """Pick the SpMV implementation for a solve on ``device``.
 
-    * CUDA, separable model: the hand-written Hopper kernel
+    * CUDA, separable model: the hand-written Hopper kernel ``box_stencil``
       (``stencil_cuda.make_box_stencil_matvec``) in float32 and float64.
-    * CUDA, non-separable or custom-propensity model: ``NotImplementedError``
-      (that needs kernel B5 of ROADMAP.md Queue B, not ported yet).
+    * CUDA, any model that ``factorize_model`` refuses (coupled
+      expressions, custom propensities): the hand-written Hopper kernel
+      ``direct_stencil`` (``stencil_cuda.make_direct_stencil_matvec``).
     * CPU: the plain PyTorch version (:func:`make_stencil_matvec`).
 
     ``config.use_pallas`` pins TPU kernel generations in the JAX package
@@ -222,15 +236,11 @@ def select_stencil_matvec(model: Model, box: BoxSpace, config, dtype,
         return make_stencil_matvec(model, box, dtype, dev)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
-    if _factored_reaction_tables(model, box) is None:
-        raise NotImplementedError(
-            f"model {model.name!r} is not separable; its stencil on a GPU "
-            "needs the non-separable kernel (ROADMAP.md Queue B, B5), "
-            "which is not ported yet"
-        )
-    from .stencil_cuda import make_box_stencil_matvec
+    from . import stencil_cuda
 
-    return make_box_stencil_matvec(model, box, dtype, dev)
+    if _factored_reaction_tables(model, box) is None:
+        return stencil_cuda.make_direct_stencil_matvec(model, box, dtype, dev)
+    return stencil_cuda.make_box_stencil_matvec(model, box, dtype, dev)
 
 
 def make_diag_fn(model: Model, box: BoxSpace, dtype=torch.float64,
@@ -243,9 +253,7 @@ def make_diag_fn(model: Model, box: BoxSpace, dtype=torch.float64,
     if tables is not None:
         d = _diag_field(tables, box, dtype, device)
     else:
-        evaluate = make_propensity_evaluator(model, box, dtype, device)
-        flat = torch.arange(box.volume, dtype=torch.int64, device=device)
-        d = sum(evaluate(flat, k) for k in range(model.n_reactions))
+        d = sum(propensity_fields(model, box, dtype, device))
 
     def diag(mask):
         return torch.where(mask, d, 0)

@@ -1,17 +1,24 @@
-"""The Hopper stencil kernel ``box_stencil`` and its PyTorch binding.
+"""The Hopper stencil kernels ``box_stencil`` and ``direct_stencil`` and
+their PyTorch bindings.
 
 ``csrc/box_stencil.cu`` computes the separable destination-form CME
 stencil SpMV (the math of ``ops/stencil.py:make_stencil_matvec``) by hand
 in CUDA C++ for ``sm_90a``, in float64 and float32.  It replaces the four
 TPU tilings of that function in ``krylovfspssa_tpu/ops/pallas_stencil.py``
 (``make_pallas_stencil_matvec_v6``/``_v5``/``_v4``/``_v3``, ROADMAP.md
-Queue B rows B1-B4).  The source header says what bounds it.
+Queue B rows B1-B4).
 
-The kernel is compiled on first use with ``nvcc`` into
+``csrc/direct_stencil.cu`` computes the direct-form stencil for every
+model that ``factorize_model`` refuses (coupled expressions, custom
+propensity callables) from per-geometry propensity fields.  It replaces
+``make_pallas_stencil_matvec_v2`` and ``make_pallas_stencil_matvec`` (v1),
+Queue B rows B5 and B6.  Each source header says what bounds its kernel.
+
+The kernels are compiled on first use with ``nvcc`` into
 ``build/krylovfspssa_tpu_torch/libkfs_kernels.so`` (rebuilt when the
-sources change) and bound through ctypes.  The wrapper takes the plain
+sources change) and bound through ctypes.  Each wrapper takes its plain
 PyTorch version only for tensors on the CPU; for a CUDA tensor it launches
-the kernel or raises.
+its kernel or raises.
 """
 
 from __future__ import annotations
@@ -31,11 +38,13 @@ import torch
 
 from ..boxspace.box import BoxSpace
 from ..models.model import Model
-from .stencil import _diag_field, _factored_reaction_tables
+from .stencil import _diag_field, _factored_reaction_tables, propensity_fields
 
 #: number of kernel launches made by :func:`box_stencil` (a plain counter
 #: a run resets and reads to show that its matvecs went through the kernel)
 LAUNCHES = 0
+#: the same count for :func:`direct_stencil`
+DIRECT_LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "krylovfspssa_tpu_torch"
@@ -98,8 +107,21 @@ def _library():
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
+        for name in ("kfs_direct_stencil_f64", "kfs_direct_stencil_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p
+            ]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _checked_volume(box: BoxSpace) -> int:
+    """The box volume, which the kernels index with 32-bit ints."""
+    if box.volume >= 1 << 31:
+        raise ValueError(f"box volume {box.volume} needs 64-bit indices")
+    return box.volume
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,13 +150,11 @@ def pack_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
     """Build the kernel operands for one box geometry (separable models)."""
     tables = _factored_reaction_tables(model, box)
     if tables is None:
-        raise NotImplementedError(
-            f"model {model.name!r} is not separable (kernel B5, ROADMAP.md "
-            "Queue B, is not ported yet)"
+        raise ValueError(
+            f"model {model.name!r} is not separable; its operands are "
+            "pack_direct_stencil's (kernel direct_stencil)"
         )
-    vol = box.volume
-    if vol >= 1 << 31:
-        raise ValueError(f"box volume {vol} needs 64-bit indices")
+    vol = _checked_volume(box)
     shifts = box.shift_of_species
     bits = box.bits_of_species
     starts, facs, chunks, pos = [0], [], [], 0
@@ -176,6 +196,42 @@ def _box_stencil_plain(pack: StencilPack, mask: torch.Tensor,
     return torch.where(mask, y, 0)
 
 
+def _check_launch_args(name, vol, operand, mask, x):
+    """Raise unless x and mask are what the kernel takes: contiguous
+    (vol,) tensors on the operands' CUDA device, x of the operands' dtype,
+    mask bool."""
+    if x.device.type != "cuda" or x.device != operand.device:
+        raise ValueError(f"{name}: x on {x.device}, operands on "
+                         f"{operand.device}")
+    if mask.device != x.device:
+        raise ValueError(f"{name}: mask on {mask.device}, x on {x.device}")
+    if x.dtype != operand.dtype:
+        raise TypeError(f"{name}: x is {x.dtype}, operands are "
+                        f"{operand.dtype}")
+    if mask.dtype != torch.bool:
+        raise TypeError(f"{name}: mask is {mask.dtype}, expected torch.bool")
+    if x.shape != (vol,) or mask.shape != (vol,):
+        raise ValueError(
+            f"{name}: x {tuple(x.shape)} / mask {tuple(mask.shape)} != "
+            f"({vol},)"
+        )
+    if not (x.is_contiguous() and mask.is_contiguous()):
+        raise ValueError(f"{name}: x and mask must be contiguous")
+
+
+def _launch(name, fn, device, args):
+    """Call a kernel entry point on ``device``'s current stream; raise on a
+    non-zero return (the launch was refused)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
 def box_stencil(pack: StencilPack, mask: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
     """y = A x on the masked box.  CUDA tensors launch the kernel (on the
@@ -184,50 +240,133 @@ def box_stencil(pack: StencilPack, mask: torch.Tensor,
     global LAUNCHES
     if x.device.type == "cpu":
         return _box_stencil_plain(pack, mask, x)
-    vol = pack.volume
-    if x.device.type != "cuda" or x.device != pack.tables.device:
-        raise ValueError(f"x on {x.device}, operands on {pack.tables.device}")
-    if mask.device != x.device:
-        raise ValueError(f"mask on {mask.device}, x on {x.device}")
-    if x.dtype != pack.dtype:
-        raise TypeError(f"x is {x.dtype}, operands are {pack.dtype}")
-    if mask.dtype != torch.bool:
-        raise TypeError(f"mask is {mask.dtype}, expected torch.bool")
-    if x.shape != (vol,) or mask.shape != (vol,):
-        raise ValueError(
-            f"x {tuple(x.shape)} / mask {tuple(mask.shape)} != ({vol},)"
-        )
-    if not (x.is_contiguous() and mask.is_contiguous()):
-        raise ValueError("x and mask must be contiguous")
+    _check_launch_args("box_stencil", pack.volume, pack.tables, mask, x)
     lib = _library()
     fn = (lib.kfs_box_stencil_f64 if x.dtype == torch.float64
           else lib.kfs_box_stencil_f32)
     y = torch.empty_like(x)
-    args = (
+    _launch("box_stencil", fn, x.device, (
         x.data_ptr(), mask.data_ptr(), pack.diag.data_ptr(),
         pack.tables.data_ptr(), pack.consts.data_ptr(), pack.meta.data_ptr(),
-        y.data_ptr(), vol, pack.n_reactions, pack.n_factors,
-        pack.tables.numel(), torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if x.device.index == torch.cuda.current_device():
-        rc = fn(*args)
-    else:
-        with torch.cuda.device(x.device):
-            rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"box_stencil launch failed: CUDA error {rc}")
+        y.data_ptr(), pack.volume, pack.n_reactions, pack.n_factors,
+        pack.tables.numel(),
+    ))
     LAUNCHES += 1
     return y
+
+
+def _check_dtype(name, dtype):
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"{name} takes float64 or float32, not {dtype}")
 
 
 def make_box_stencil_matvec(model: Model, box: BoxSpace, dtype=torch.float64,
                             device="cuda"):
     """matvec(mask, x) through ``box_stencil`` for one box geometry."""
-    if dtype not in (torch.float64, torch.float32):
-        raise TypeError(f"box_stencil takes float64 or float32, not {dtype}")
+    _check_dtype("box_stencil", dtype)
     pack = pack_stencil(model, box, dtype, device)
 
     def matvec(mask, x):
         return box_stencil(pack, mask, x)
+
+    return matvec
+
+
+# --------------------------------------------------------------------- #
+#            direct_stencil: any propensity (kernels B5 / B6)           #
+# --------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectPack:
+    """``direct_stencil``'s per-geometry operands, on the solve's device."""
+
+    #: (R, vol) propensity field of every reaction (built in float64, cast
+    #: to dtype): R * vol * itemsize bytes of device memory per geometry
+    fields: torch.Tensor
+    #: int32 [off[R] | start[R+1] | (shift, ext-1, nu) per moved species]
+    meta: torch.Tensor
+    volume: int
+    n_reactions: int
+    n_moved: int
+
+    @property
+    def dtype(self):
+        return self.fields.dtype
+
+
+def pack_direct_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
+                        device="cuda") -> DirectPack:
+    """Build ``direct_stencil``'s operands for one box geometry (any
+    model: the fields come from its expressions or its callable)."""
+    vol = _checked_volume(box)
+    stoich = np.asarray(box.stoichiometry)
+    starts, moved = [0], []
+    for k in range(stoich.shape[0]):
+        for s in np.nonzero(stoich[k])[0]:
+            moved += [int(box.shift_of_species[s]),
+                      (1 << int(box.bits_of_species[s])) - 1,
+                      int(stoich[k, s])]
+        starts.append(len(moved) // 3)
+    meta = np.array([int(o) for o in box.offsets] + starts + moved, np.int32)
+    return DirectPack(
+        fields=propensity_fields(model, box, dtype, device).contiguous(),
+        meta=torch.as_tensor(meta, device=device),
+        volume=vol,
+        n_reactions=stoich.shape[0],
+        n_moved=len(moved) // 3,
+    )
+
+
+def _direct_stencil_plain(pack: DirectPack, mask: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, from the same operands."""
+    R = pack.n_reactions
+    meta = pack.meta.tolist()
+    off, start, mv = meta[:R], meta[R:2 * R + 1], meta[2 * R + 1:]
+    z = torch.arange(pack.volume, dtype=torch.int64, device=x.device)
+    xm = torch.where(mask, x, 0)
+    y = -sum(pack.fields) * xm
+    for k in range(R):
+        ok = torch.ones(pack.volume, dtype=torch.bool, device=x.device)
+        for f in range(start[k], start[k + 1]):
+            shift, emask, nu = mv[3 * f:3 * f + 3]
+            pred = ((z >> shift) & emask) - nu
+            ok = ok & (pred >= 0) & (pred <= emask)
+        src = (z - off[k]) & (pack.volume - 1)
+        y = y + torch.where(ok, pack.fields[k][src] * xm[src], 0)
+    return torch.where(mask, y, 0)
+
+
+def direct_stencil(pack: DirectPack, mask: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """y = A x on the masked box for any propensity.  CUDA tensors launch
+    the kernel (on the current stream, without synchronising); CPU tensors
+    take the plain version."""
+    global DIRECT_LAUNCHES
+    if x.device.type == "cpu":
+        return _direct_stencil_plain(pack, mask, x)
+    _check_launch_args("direct_stencil", pack.volume, pack.fields, mask, x)
+    lib = _library()
+    fn = (lib.kfs_direct_stencil_f64 if x.dtype == torch.float64
+          else lib.kfs_direct_stencil_f32)
+    y = torch.empty_like(x)
+    _launch("direct_stencil", fn, x.device, (
+        x.data_ptr(), mask.data_ptr(), pack.fields.data_ptr(),
+        pack.meta.data_ptr(), y.data_ptr(), pack.volume, pack.n_reactions,
+        pack.n_moved,
+    ))
+    DIRECT_LAUNCHES += 1
+    return y
+
+
+def make_direct_stencil_matvec(model: Model, box: BoxSpace,
+                               dtype=torch.float64, device="cuda"):
+    """matvec(mask, x) through ``direct_stencil`` for one box geometry."""
+    _check_dtype("direct_stencil", dtype)
+    pack = pack_direct_stencil(model, box, dtype, device)
+
+    def matvec(mask, x):
+        return direct_stencil(pack, mask, x)
 
     return matvec

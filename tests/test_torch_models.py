@@ -111,7 +111,54 @@ def test_expression_semantics():
         texpr.parse_expression("foo(2)", [])
 
 
-@pytest.mark.parametrize("name", ["toggle_programmatic", "ge5d"])
-def test_custom_propensity_models_not_ported(name):
-    with pytest.raises(NotImplementedError, match="B5"):
-        tlib.get_model(name)
+CUSTOM_MODELS = ["toggle_programmatic", "ge5d"]
+
+
+@pytest.mark.parametrize("name", CUSTOM_MODELS)
+def test_custom_propensities_match_jax(name):
+    """The torch callables against the JAX ones on 256 random states
+    (rtol 1e-12, equal parameter vectors, names and stoichiometry)."""
+    jm, tm = jlib.get_model(name), tlib.get_model(name)
+    assert tm.custom_propensity is not None and tm.name == jm.name
+    np.testing.assert_array_equal(tm.parameters, jm.parameters)
+    np.testing.assert_array_equal(tm.stoichiometry, jm.stoichiometry)
+    assert tm.species_names == jm.species_names
+    assert tm.parameter_names == jm.parameter_names
+    rng = np.random.default_rng(0)
+    states = rng.integers(0, 60, size=(256, jm.n_species))
+    ref = np.asarray(jm.propensities(jnp.asarray(states)))
+    got = tm.propensities(states).numpy()
+    assert got.dtype == np.float64 and got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("name", CUSTOM_MODELS)
+def test_custom_propensity_any_batch_shape(name):
+    """The callable indexes with ``...``: a (B, 128, d) batch gives the
+    flat (n, d) answer, on a float64 tensor of the states' device."""
+    tm = tlib.get_model(name)
+    states = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 40, size=(2 * 128, tm.n_species)).astype(np.float64))
+    params = torch.as_tensor(tm.parameters, dtype=torch.float64)
+    flat = tm.propensities(states)
+    for k in range(tm.n_reactions):
+        blocked = tm.custom_propensity(states.reshape(2, 128, -1), k, params)
+        np.testing.assert_array_equal(
+            torch.as_tensor(blocked).broadcast_to((2, 128)).reshape(-1),
+            flat[:, k])
+
+
+def test_ge5d_library_matches_input_file():
+    """The library's custom ge5d against models/ge5d_model.input with the
+    library's parameters (mirror of tests/test_model_loader.py)."""
+    mf = tload(MODELS_DIR / "ge5d_model.input")
+    mp = tlib.ge5d_model()
+    mf.reset_parameters(mp.parameters)
+    states = np.array(
+        [[0, 0, 0, 0, 0], [1, 2, 3, 4, 5], [3, 1, 0, 2, 1], [2, 5, 5, 5, 5]]
+    )
+    np.testing.assert_allclose(
+        mf.propensities(states).numpy(), mp.propensities(states).numpy(),
+        rtol=1e-12, atol=1e-12,
+    )
+    np.testing.assert_array_equal(mf.stoichiometry, mp.stoichiometry)

@@ -1,8 +1,9 @@
 """PyTorch port vs JAX package: the stencil matvec (plain destination form,
-direct-eval form, and the packed operands of the CUDA kernel), the
+direct-eval form, and the packed operands of the box_stencil CUDA kernel;
+tests/test_torch_direct_stencil.py covers direct_stencil's), the
 diagonal, mask dilation, expansion rounds, face detection, and the
-selector.  The kernel itself is compared with its plain version on the
-card in tests/test_torch_stencil_cuda.py."""
+selector.  The kernels themselves are compared with their plain versions
+on the card in tests/test_torch_stencil_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -94,7 +95,7 @@ def _nonseparable(model_cls):
     )
 
 
-def test_direct_eval_form_matches_jax_f64():
+def test_direct_eval_form_matches_jax_f64(monkeypatch):
     jm, tm = _nonseparable(JModel), _nonseparable(TModel)
     jb = _grown(JBox, jm.stoichiometry, [[0, 0]], [32, 16])
     tb = _grown(TBox, tm.stoichiometry, [[0, 0]], [32, 16])
@@ -110,10 +111,12 @@ def test_direct_eval_form_matches_jax_f64():
         np.asarray(jst.make_diag_fn(jm, jb)(jnp.asarray(mask))),
         rtol=1e-15, atol=0,
     )
-    # on a GPU this model needs kernel B5, which is not ported yet
-    with pytest.raises(NotImplementedError, match="B5"):
-        tst.select_stencil_matvec(tm, tb, SolverConfig(), torch.float64,
-                                  "cuda")
+    # on a GPU this model runs the direct_stencil kernel (replaced by a
+    # marker here: this host has no card)
+    monkeypatch.setattr(stencil_cuda, "make_direct_stencil_matvec",
+                        lambda *a: "direct_stencil")
+    assert tst.select_stencil_matvec(
+        tm, tb, SolverConfig(), torch.float64, "cuda") == "direct_stencil"
 
 
 @pytest.mark.parametrize("block_rows", [512, 128])
