@@ -3,10 +3,11 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded-only    # several cards: [sharded] alone
 
 Builds the hand-written stencil kernels from ``krylovfspssa_tpu_torch/csrc``
 with nvcc, holds each against its plain PyTorch version on the card, and
-drives the port's two solve paths through ``solve_cme_box``/``BoxCmeSolver``
+drives the port's three solve paths through ``solve_cme_box``/``BoxCmeSolver``
 on ``cuda``:
 
   1. environment: card name and power limit, torch/CUDA versions, kernel
@@ -28,17 +29,32 @@ on ``cuda``:
      fsp_tol 1e-4, krylov_tol 1e-10), and ``ge5d`` at real size through the
      library's callable and through ``models/ge5d_model.input`` (separable,
      ``box_stencil``), which must agree; then ``direct_stencil`` vs its
-     plain version at the box the ge5d solve reached.
+     plain version at the box the ge5d solve reached;
+  6. ``[halo]``: ``halo_stencil`` vs its plain version on every row shard
+     of the 2^22-cell Goutsias box and of the box the Goutsias solve of
+     phase 3 ended in (the one [sharded] runs), each cut into 1, 2 and 4
+     shards on one card (halos cut from the global vector), float64 and
+     float32, and the concatenated shards vs ``box_stencil`` on the whole
+     vector, with the times per shard beside ``box_stencil``'s;
+  7. ``[sharded]``: the Goutsias solve of phase 3 row-sharded through
+     ``solve_cme_box(..., mesh=...)`` in spawned ranks (one card per rank
+     with NCCL when two or more cards are visible, up to 4; otherwise 2
+     gloo ranks on ``cuda:0``), held against the one-rank solve of phase 3,
+     with the cost of one all_reduce and one halo swap, and once more with
+     rank 0 under torch.profiler (collective counts, the largest device
+     items).
 
-Each solve path (3 and 5) runs with the kernels' launch counts set to 0
-just before it and read just after.  Each phase prints its own lines with
-its wall time.  Any failure raises and exits non-zero.  The last lines are
-a JSON record of the kernels, the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Each solve path (3, 5 and 7) runs with the kernels' launch counts set to 0
+just before it and read just after (in each rank, for 7).  Each phase
+prints its own lines with its wall time.  Any failure raises and exits
+non-zero.  The last lines are a JSON record of the kernels, the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -114,7 +130,7 @@ def phase_env():
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
     info = stencil_cuda.build()
-    print(f"[env] kernels (box_stencil, direct_stencil) built in "
+    print(f"[env] kernels (box_stencil, direct_stencil, halo_stencil) built in "
           f"{info.seconds:.2f} s -> {info.path}")
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
@@ -209,7 +225,8 @@ def _launches() -> dict:
     from krylovfspssa_tpu_torch.ops import stencil_cuda
 
     return {"box_stencil": stencil_cuda.LAUNCHES,
-            "direct_stencil": stencil_cuda.DIRECT_LAUNCHES}
+            "direct_stencil": stencil_cuda.DIRECT_LAUNCHES,
+            "halo_stencil": stencil_cuda.HALO_LAUNCHES}
 
 
 def _reset_launches():
@@ -217,6 +234,7 @@ def _reset_launches():
 
     stencil_cuda.LAUNCHES = 0
     stencil_cuda.DIRECT_LAUNCHES = 0
+    stencil_cuda.HALO_LAUNCHES = 0
 
 
 def _solve(model, t, x0, fsp_tol, krylov_tol, config=None):
@@ -340,15 +358,17 @@ def _profile(tag, args):
               f"x{e.count}")
 
 
+GOUTSIAS = (10.0, [[2, 6, 0, 2, 0, 0]], 1e-6, 1e-8)
+
+
 def phase_goutsias():
+    """Returns the solve's result (the one-rank reference of [sharded])."""
     import torch
 
     from krylovfspssa_tpu_torch.models.library import goutsias_model
 
     torch.cuda.reset_peak_memory_stats()
-    solver, res, launches, wall = _solve(
-        goutsias_model(), 10.0, [[2, 6, 0, 2, 0, 0]], 1e-6, 1e-8
-    )
+    solver, res, launches, wall = _solve(goutsias_model(), *GOUTSIAS)
     _print_solve("goutsias", solver, res, launches, wall)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[goutsias] peak device memory {peak:.2f} GiB; JAX package on a "
@@ -356,9 +376,9 @@ def phase_goutsias():
     _check_solve("goutsias", solver, res, launches, 1 - 1e-6, 1 + 1e-6)
     if res.box.volume < 1 << 22:
         raise AssertionError(f"goutsias box volume {res.box.volume} < 2^22")
-    del solver, res
-    _profile("goutsias t=10", (goutsias_model(), 10.0, [[2, 6, 0, 2, 0, 0]],
-                               1e-6, 1e-8))
+    del solver
+    _profile("goutsias t=10", (goutsias_model(), *GOUTSIAS))
+    return res
 
 
 def _face_inputs(box, dt, seed=0):
@@ -516,6 +536,247 @@ def phase_ge5d():
     return lib, results[0].box
 
 
+def phase_halo(solve_box):
+    """halo_stencil on the card at two geometries: the 2^22-cell Goutsias
+    box and ``solve_box``, the box the Goutsias solve of phase 3 ended in
+    (the box [sharded] runs), each cut into P = 1, 2 and 4 row shards on
+    one card, each shard's halos cut from the global masked x (every face
+    of the box active).  Kernel vs plain version per shard; the
+    concatenated shards vs box_stencil on the whole vector; P=1 times the
+    kernel on the whole box (zero halos) beside box_stencil.  Returns the
+    2^22 P=2 float64 row (worst shard error, median shard times)."""
+    import torch
+
+    from krylovfspssa_tpu_torch.models.library import goutsias_model
+
+    t0 = time.perf_counter()
+    model = goutsias_model()
+    grown = _grown(model, [[2, 6, 0, 2, 0, 0]], [64, 64, 16, 4, 4, 4])
+    flagship = None
+    for name, box in (("goutsias-2^22", grown),
+                      ("goutsias-solve-box", solve_box)):
+        for dt, rtol in ((torch.float64, F64_RTOL),
+                         (torch.float32, F32_RTOL)):
+            rows = _halo_case(name, model, box, dt, rtol)
+            if flagship is None:
+                flagship = rows[2]
+    print(f"[halo] wall {time.perf_counter() - t0:.2f} s")
+    return flagship
+
+
+def _halo_case(name, model, box, dt, rtol):
+    """halo_stencil on one geometry and dtype for P = 1, 2, 4; returns
+    {P: row}."""
+    import torch
+
+    from krylovfspssa_tpu_torch.ops import stencil_cuda as sc
+    from krylovfspssa_tpu_torch.ops.halo import halo_from_global, halo_width
+
+    H = halo_width(box)
+    mask, x = _face_inputs(box, dt)
+    xm = torch.where(mask, x, 0)
+    bpack = sc.pack_stencil(model, box, dt, "cuda")
+    whole = sc.box_stencil(bpack, mask, x)
+    ms_box = _time_ms(sc.box_stencil, bpack, mask, x)
+    scale = float(torch.max(torch.abs(whole)))
+    out = {}
+    for n_ranks in (1, 2, 4):
+        L = box.volume // n_ranks
+        shards, errs, ms_k, ms_p = [], [], [], []
+        for r in range(n_ranks):
+            z0 = r * L
+            pack = sc.pack_halo_stencil(model, box, dt, "cuda", z0, L)
+            args = (pack, mask[z0:z0 + L], x[z0:z0 + L],
+                    *halo_from_global(xm, z0, L, H))
+            y_k = sc.halo_stencil(*args)
+            y_p = sc._halo_stencil_plain(*args)
+            torch.cuda.synchronize()
+            errs.append(float(torch.max(torch.abs(y_k - y_p))))
+            ms_k.append(_time_ms(sc.halo_stencil, *args))
+            ms_p.append(_time_ms(sc._halo_stencil_plain, *args))
+            shards.append(y_k)
+        err_box = float(torch.max(torch.abs(torch.cat(shards) - whole)))
+        print(f"[halo] {name} {tuple(box.shape)} {str(dt)[6:]} P={n_ranks} "
+              f"L={L} H={H} max_abs_err={max(errs):.3e} vs plain, "
+              f"{err_box:.3e} concatenated vs box_stencil (limit {rtol:g} x "
+              f"{scale:.3e}); per shard kernel "
+              f"{' '.join(f'{m * 1e3:.1f}' for m in ms_k)} us, plain "
+              f"{' '.join(f'{m * 1e3:.1f}' for m in ms_p)} us; box_stencil "
+              f"whole {ms_box * 1e3:.1f} us")
+        if not (max(errs) <= rtol * scale and err_box <= rtol * scale):
+            raise AssertionError(
+                f"halo_stencil disagrees on {name} at P={n_ranks} {dt}: "
+                f"{max(errs):.3e} vs plain, {err_box:.3e} vs box_stencil "
+                f"(limit {rtol:g} x {scale:.3e})")
+        out[n_ranks] = dict(max_abs_err=max(errs),
+                            ms=statistics.median(ms_k),
+                            plain_ms=statistics.median(ms_p))
+    return out
+
+
+def _sharded_rank(mesh, args):
+    """One rank of [sharded]: the Goutsias solve on this rank's rows, with
+    this process's launch counts set to 0 just before it.  A t=1 solve
+    first takes the fresh process's start-up (CUDA context, cuBLAS,
+    communicators), so that the wall compares with phase 3's warm one, and
+    a barrier starts every rank's clock together."""
+    import torch
+
+    from krylovfspssa_tpu_torch import BoxCmeSolver
+    from krylovfspssa_tpu_torch.models.library import goutsias_model
+
+    BoxCmeSolver(goutsias_model(), mesh=mesh).solve(
+        1.0, args[1], fsp_tol=args[2], krylov_tol=args[3])
+    torch.cuda.synchronize(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    solver = BoxCmeSolver(goutsias_model(), mesh=mesh)
+    mesh.barrier()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = solver.solve(args[0], args[1], fsp_tol=args[2], krylov_tol=args[3])
+    torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak_gib = torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30
+    return dict(
+        rank=mesh.rank, device=str(mesh.device), dtype=str(solver.dtype),
+        launches=launches, wall=wall, peak_gib=peak_gib,
+        profile=_rank_profile(mesh, args, res.box),
+        records=[dataclasses.replace(r, wall_s=0.0)
+                 for r in res.stats.records],
+        result=res if mesh.rank == 0 else None,
+        stats=(res.stats.iflag, res.stats.nstep, res.stats.nmult,
+               res.stats.nreject),
+    )
+
+
+def _rank_profile(mesh, args, box):
+    """Where a sharded solve's time goes.  The same solve once more on
+    every rank, rank 0's under torch.profiler: the number of each
+    collective and the device time (NCCL's ``nccl:*`` ranges repeat their
+    kernels' time and are left out).  The profiler slows rank 0's host
+    several times over, so the cost of one collective is timed without it:
+    a float64 all_reduce read back to the host, as every reduction of the
+    solve is, and a halo swap at ``box``, each back to back on every rank
+    after a barrier.  Returns rank 0's summary, None elsewhere."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from krylovfspssa_tpu_torch import BoxCmeSolver
+    from krylovfspssa_tpu_torch.models.library import goutsias_model
+    from krylovfspssa_tpu_torch.ops.halo import halo_width
+
+    def us_per_call(fn, n):
+        fn()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize(mesh.device)
+        return (time.perf_counter() - t0) / n * 1e6
+
+    one = torch.zeros(1, dtype=torch.float64, device=mesh.device)
+    x = torch.zeros(mesh.rows(box.volume)[1], dtype=torch.float64,
+                    device=mesh.device)
+    all_reduce_us = us_per_call(lambda: float(mesh.sum(one)), 300)
+    swap_us = us_per_call(lambda: mesh.exchange_halo(x, halo_width(box)), 50)
+
+    solver = BoxCmeSolver(goutsias_model(), mesh=mesh)
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if mesh.rank == 0 else contextlib.nullcontext())
+    mesh.barrier()
+    with prof:
+        solver.solve(args[0], args[1], fsp_tol=args[2], krylov_tol=args[3])
+        torch.cuda.synchronize(mesh.device)
+    if mesh.rank:
+        return None
+    events = [e for e in prof.key_averages()
+              if not e.key.startswith("nccl:")]
+
+    def calls(prefix):
+        return sum(e.count for e in events if e.key.startswith(prefix))
+
+    return dict(
+        all_reduce_us=all_reduce_us, swap_us=swap_us,
+        calls={k: calls(f"c10d::{p}") for k, p in (
+            ("all_reduce", "allreduce"), ("send", "send"),
+            ("recv", "recv"), ("all_gather", "_allgather"))},
+        device_ms=sum(_device_us(e) for e in events) / 1e3,
+        top=[(e.key[:60], _device_us(e) / 1e3, e.count)
+             for e in sorted(events, key=lambda e: -_device_us(e))[:6]],
+    )
+
+
+def phase_sharded(one_rank):
+    """The Goutsias solve of phase 3 row-sharded over spawned ranks;
+    returns the ranks' summed launch counts."""
+    import torch
+
+    from krylovfspssa_tpu_torch.parallel.multihost import spawn
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        devices, backend = [f"cuda:{r}" for r in range(min(cards, 4))], "nccl"
+    else:
+        devices, backend = ["cuda:0", "cuda:0"], "gloo"
+    print(f"[sharded] {len(devices)} ranks, {backend}, on {devices} "
+          f"({cards} cards visible)")
+    outs = spawn(_sharded_rank, devices, (GOUTSIAS,), backend=backend,
+                 timeout_s=600)
+    for o in outs:
+        iflag, nstep, nmult, nreject = o["stats"]
+        print(f"[sharded] rank {o['rank']} on {o['device']}: nstep {nstep} "
+              f"nmult {nmult} nreject {nreject} launches {o['launches']} "
+              f"wall {o['wall']:.2f} s peak device memory "
+              f"{o['peak_gib']:.2f} GiB")
+    p = outs[0]["profile"]
+    print(f"[sharded] rank 0: one float64 all_reduce read back "
+          f"{p['all_reduce_us']:.0f} us, one halo swap {p['swap_us']:.0f} us "
+          f"(unprofiled, back to back); profiled solve: calls {p['calls']}, "
+          f"device time {p['device_ms']:.1f} ms")
+    for key, ms, count in p["top"]:
+        print(f"[sharded]   {key:60s} {ms:9.1f} ms x{count}")
+    res = outs[0]["result"]
+    l1 = _l1(res, one_rank)
+    print(f"[sharded] wsum {res.wsum:.10f} box {res.box.shape} fsp "
+          f"{res.stats.final_fsp_size}; one-rank (phase 3): box "
+          f"{one_rank.box.shape} nstep {one_rank.stats.nstep} nmult "
+          f"{one_rank.stats.nmult}; L1 to it {l1:.3e} (limit "
+          f"{2 * GOUTSIAS[2]:g}); wall {time.perf_counter() - t0:.2f} s "
+          "with spawning")
+    fsp_tol = GOUTSIAS[2]
+    for o in outs:
+        iflag, nstep, nmult, _ = o["stats"]
+        if iflag != 0 or o["dtype"] != "torch.float64":
+            raise AssertionError(f"rank {o['rank']}: iflag {iflag}, "
+                                 f"{o['dtype']}")
+        if o["launches"]["halo_stencil"] < nmult:
+            raise AssertionError(f"rank {o['rank']}: {o['launches']} "
+                                 f"halo_stencil launches < nmult {nmult}")
+        if o["launches"]["box_stencil"] or o["launches"]["direct_stencil"]:
+            raise AssertionError(f"rank {o['rank']} launched another "
+                                 f"kernel: {o['launches']}")
+        if o["records"] != outs[0]["records"]:
+            raise AssertionError(f"rank {o['rank']}'s step records differ "
+                                 "from rank 0's")
+    if not (np.all(np.isfinite(res.probabilities))
+            and 1 - fsp_tol <= res.wsum <= 1 + fsp_tol):
+        raise AssertionError(f"sharded wsum {res.wsum}")
+    if res.box.shape != one_rank.box.shape or not l1 <= 2 * fsp_tol:
+        raise AssertionError(f"sharded solve differs from the one-rank "
+                             f"solve: box {res.box.shape} vs "
+                             f"{one_rank.box.shape}, L1 {l1:.3e}")
+    total = {k: sum(o["launches"][k] for o in outs)
+             for k in outs[0]["launches"]}
+    print(f"[sharded path] launches (all ranks): {total}")
+    if total["halo_stencil"] == 0:
+        raise AssertionError("sharded path: halo_stencil was never launched")
+    return total
+
+
 def _path_launches(tag, run, kernels):
     """Run one solve path with the launch counts set to 0 just before it;
     the counts read just after must show every kernel of the path."""
@@ -529,27 +790,54 @@ def _path_launches(tag, run, kernels):
     return counts, out
 
 
-def main() -> int:
+def sharded_only(smi) -> int:
+    """``--sharded-only``: the row-sharded path and what it is held
+    against, alone (for a machine with several cards): the one-rank
+    Goutsias solve of phase 3, after a t=1 warm-up solve so that its wall
+    compares with the ranks' warm ones, then [sharded]."""
+    from krylovfspssa_tpu_torch.models.library import goutsias_model
+
+    t_start = time.perf_counter()
+    _solve(goutsias_model(), 1.0, *GOUTSIAS[1:])
+    _reset_launches()
+    one = phase_goutsias()
+    phase_sharded(one)
+    print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="run only the one-rank Goutsias solve and "
+                    "[sharded] (one NCCL rank per visible card, up to 4)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
     torch.cuda.set_device(0)
-    t_start = time.perf_counter()
     smi = phase_env()
+    if args.sharded_only:
+        return sharded_only(smi)
+    t_start = time.perf_counter()
     flagship = phase_kernels()
     phase_small_solve()
 
     # path 1, separable models: every launch is a solve's box_stencil matvec
     def separable():
         phase_toggle()
-        phase_goutsias()
+        return phase_goutsias()
 
-    sep, _ = _path_launches("separable path", separable, ["box_stencil"])
-    if sep["direct_stencil"]:
-        raise AssertionError(f"separable models launched direct_stencil: "
+    sep, goutsias_one = _path_launches("separable path", separable,
+                                       ["box_stencil"])
+    if sep["direct_stencil"] or sep["halo_stencil"]:
+        raise AssertionError(f"separable models launched another kernel: "
                              f"{sep}")
 
     direct_flagship = phase_direct_kernels()
@@ -563,6 +851,10 @@ def main() -> int:
     cus, (ge5d, ge5d_box) = _path_launches(
         "custom path", custom, ["direct_stencil", "box_stencil"])
     _direct_case("ge5d-solve-box", ge5d, ge5d_box)
+
+    halo_flagship = phase_halo(goutsias_one.box)
+    # path 3, the row-sharded solve: halo_stencil in every rank
+    shl = phase_sharded(goutsias_one)
 
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -584,6 +876,16 @@ def main() -> int:
         "max_abs_err": direct_flagship["max_abs_err"],
         "ms": direct_flagship["ms"],
         "plain_ms": direct_flagship["plain_ms"],
+    }, {
+        "name": "halo_stencil",
+        "route": "cuda",
+        "source": "krylovfspssa_tpu_torch/csrc/halo_stencil.cu",
+        "replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:1828",
+        "also_replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:1496",
+        "launches": shl["halo_stencil"],
+        "max_abs_err": halo_flagship["max_abs_err"],
+        "ms": halo_flagship["ms"],
+        "plain_ms": halo_flagship["plain_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,15 @@ The port runs the host-driven stepwise loop of the JAX package
 ``config.fused_steps`` says.  That is the same algorithm as the JAX fused
 device loop (``tests/test_box.py::test_fused_loop_matches_host_loop`` pins
 the two equal); a fused device loop for this port is later work.
+
+With ``mesh`` (parallel/sharded.py) the solve is row-sharded: every rank
+of the mesh calls ``solve`` with the same arguments, holds its rows of the
+mask, the vector and the Krylov basis, and runs the same host loop on
+scalars that are reduced over the ranks, so every rank takes the same
+branches.  The matvec exchanges halos (ops/halo.py); box growth gathers
+the mask and the vector to every rank, grows and re-slices them, as the
+JAX package does with ``host_gather``.  Every rank returns the whole
+result.
 """
 
 from __future__ import annotations
@@ -38,12 +47,12 @@ from .krylov.stepper import EPS, initial_carry, make_step_fn
 from .models.model import Model
 from .ops.stencil import (
     active_touches_face,
-    dest_valid_masks,
-    dilate_mask,
     expansion_rounds,
     make_diag_fn,
+    make_dilate_fn,
     select_stencil_matvec,
 )
+from .parallel.multihost import host_gather
 from .statespace.drop import drop_loss_rate, drop_mask_device
 from .utils.stats import SolverStats, StepRecord
 
@@ -96,7 +105,7 @@ class _GeometryFns:
     step: object
     matvec: object
     diag: object
-    valid: list
+    dilate: object
 
 
 class BoxCmeSolver:
@@ -112,17 +121,29 @@ class BoxCmeSolver:
     device (R * volume * itemsize bytes: 671 MB for ge5d, R=10, at 2^23
     cells in float64).  The basis clamp of :meth:`_geometry_config` does
     not count them, as in the JAX package.
+
+    Pass ``mesh`` (a ``parallel.sharded.ShardMesh``) to run the solve
+    row-sharded over its ranks, one process each (module docstring); the
+    device is then the mesh's.  Under a mesh the stencil is the halo
+    matvec (kernel ``halo_stencil`` on CUDA), for separable models only.
     """
 
     def __init__(
         self,
         model: Model,
         config: SolverConfig | None = None,
-        device="cuda",
+        device=None,
+        mesh=None,
     ):
         self.model = model
         self.config = config or SolverConfig()
-        self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._dtype = _DTYPES[self.config.resolved_dtype(self.device)]
@@ -153,7 +174,9 @@ class BoxCmeSolver:
     def _geometry_config(self, box: BoxSpace) -> SolverConfig:
         """Per-geometry config: m_max clamped so the Krylov basis
         ((m_max+2) box-volume vectors) fits config.max_basis_bytes (and
-        config.max_basis_frac of the device memory when known)."""
+        config.max_basis_frac of the device memory when known).  Under a
+        mesh the clamp still counts the whole box, as the JAX package's
+        does, so that m_eff is the one-device solve's."""
         cfg = self.config
         if cfg.max_basis_bytes <= 0:
             return cfg
@@ -172,37 +195,65 @@ class BoxCmeSolver:
         """Per-box-geometry step/matvec/diag/dilation masks (cached)."""
         key = (box.log2, box.axis_of_species)
         if key not in self._fns:
+            mesh = self.mesh
             matvec = select_stencil_matvec(
-                self.model, box, self.config, self._dtype, self.device
+                self.model, box, self.config, self._dtype, self.device,
+                mesh=mesh,
             )
-            diag = make_diag_fn(self.model, box, torch.float64, self.device)
+            diag = make_diag_fn(self.model, box, torch.float64, self.device,
+                                None if mesh is None
+                                else mesh.rows(box.volume))
             R = self.model.n_reactions
 
             def op_info(mask):
-                n, dmax = torch.stack([
+                nd = torch.stack([
                     torch.sum(mask).to(torch.float64),
                     torch.max(diag(mask)),
-                ]).tolist()
+                ])
+                if mesh is not None:
+                    nd = torch.stack([mesh.sum(nd[0]), mesh.max(nd[1])])
+                n, dmax = nd.tolist()
                 # operator-norm proxy for the scaled breakdown threshold
                 return int(n), R, 2.0 * dmax
 
             step = make_step_fn(
                 lambda mask: (lambda x: matvec(mask, x)),
                 self._geometry_config(box), op_info,
+                reduce=None if mesh is None else mesh.sum,
             )
             self._fns[key] = _GeometryFns(
                 step=step, matvec=matvec, diag=diag,
-                valid=dest_valid_masks(box, self.device),
+                dilate=make_dilate_fn(box, self.device, mesh),
             )
         return self._fns[key]
 
+    def _total(self, t):
+        """A float64 sum over the cell axis: over every rank under a mesh
+        (``t`` a local partial), ``t`` itself on one device."""
+        return t if self.mesh is None else self.mesh.sum(t)
+
+    def _touching(self, box, mask, mesh=None) -> np.ndarray:
+        touch = active_touches_face(box, mask, mesh)
+        return touch & (box.extents < self.config.max_molecules + 1)
+
     def _grow_until_fits(self, box, mask, w):
         """Grow axes whose faces are touched by active cells (mask and w
-        are re-embedded on the device)."""
+        are re-embedded on the device).  Under a mesh a growth gathers
+        mask and w to every rank, grows, and re-slices them."""
+        mesh = self.mesh
+        if mesh is not None:
+            if not self._touching(box, mask, mesh).any():
+                return box, mask, w
+            mask, w = mesh.gather(mask), mesh.gather(w)
+        box, mask, w = self._grow_full(box, mask, w)
+        if mesh is not None:
+            mask, w = mesh.local(mask), mesh.local(w)
+        return box, mask, w
+
+    def _grow_full(self, box, mask, w):
         cfg = self.config
         while True:
-            touch = active_touches_face(box, mask)
-            touch &= box.extents < cfg.max_molecules + 1
+            touch = self._touching(box, mask)
             if not touch.any():
                 return box, mask, w
             sp = int(np.argmax(touch))
@@ -218,9 +269,9 @@ class BoxCmeSolver:
             box = new_box
 
     def _dilate(self, box, mask, rounds=1):
-        valid = self._functions(box).valid
+        dilate = self._functions(box).dilate
         for _ in range(rounds):
-            mask = dilate_mask(box, mask, valid)
+            mask = dilate(mask)
         return mask
 
     # ---------------------------------------------------------------- #
@@ -246,7 +297,7 @@ class BoxCmeSolver:
             from .checkpoint import load_checkpoint
 
             box, mask_np, w_np, carry, t_ck, fsp_tol, krytol = (
-                load_checkpoint(resume_from)
+                load_checkpoint(resume_from, self.mesh)
             )
             t = t_ck
             self._set_dtype(resolve_solve_dtype(
@@ -274,13 +325,15 @@ class BoxCmeSolver:
             w = torch.zeros(box.volume, dtype=torch.float64, device=dev)
             mask[idx] = True
             w[idx] = torch.as_tensor(p0, device=dev)
+            if self.mesh is not None:
+                mask, w = self.mesh.local(mask), self.mesh.local(w)
 
             # start-up expansion (KrylovSolver.f90:130-134)
             for _ in range(cfg.init_onestep_expansions):
                 box, mask, w = self._grow_until_fits(box, mask, w)
                 mask = self._dilate(box, mask)
             box, mask, w = self._grow_until_fits(box, mask, w)
-            beta = float(np.linalg.norm(w.cpu().numpy()))
+            beta = float(np.linalg.norm(host_gather(w, self.mesh)))
             w = w.to(self._dtype)
 
             krytol = float(krylov_tol)
@@ -328,27 +381,32 @@ class BoxCmeSolver:
             if res.advanced and res.dsum > 0.0:
                 w64 = w.to(torch.float64)
                 inflow = fns.matvec(mask, w).to(torch.float64)
+                reduce = None if self.mesh is None else self.mesh.sum
                 dmask, count, _ = drop_mask_device(
                     w64, inflow, mask, res.dsum,
                     droptol_start=cfg.droptol_start,
                     inflow_guard=cfg.inflow_guard,
+                    reduce=reduce,
                 )
-                n_active = int(mask.sum())
+                n_active = int(self._total(mask.sum()))
                 # anti-thrash gate (same policy as the JAX fused loop's
                 # drop_inline): gross-leak-rate bound with a
                 # memory-pressure escape on the box volume
-                loss = drop_loss_rate(w64, inflow, fns.diag(mask), dmask)
+                loss = drop_loss_rate(w64, inflow, fns.diag(mask), dmask,
+                                      reduce)
                 rate_budget = cfg.drop_rate_frac * fsptol / abs(t_out)
-                pressure = n_active >= cfg.drop_pressure_frac * mask.numel()
+                pressure = n_active >= cfg.drop_pressure_frac * box.volume
                 if count > cfg.drop_fraction * n_active and (
                     loss <= rate_budget or pressure
                 ):
-                    dropped_mass = float(torch.sum(torch.where(dmask, w64, 0.0)))
+                    dropped_mass = float(self._total(
+                        torch.sum(torch.where(dmask, w64, 0.0))))
                     mask = mask & ~dmask
                     w = torch.where(dmask, 0.0, w)
                     dropped = count
                     stats.n_drops += 1
-                    beta_new = float(torch.sqrt(torch.sum(w * w)))
+                    beta_new = float(torch.sqrt(
+                        self._total(torch.sum(w * w))))
                     carry = carry._replace(
                         beta=np.float64(beta_new),
                         hump=np.maximum(carry.hump, beta_new),
@@ -376,7 +434,7 @@ class BoxCmeSolver:
 
             rec = StepRecord(
                 nstep=int(carry.nstep),
-                fsp_size=int(mask.sum()),
+                fsp_size=int(self._total(mask.sum())),
                 t_step=res.t_step,
                 t_new=float(carry.t_new),
                 t_now=float(carry.t_now),
@@ -395,10 +453,14 @@ class BoxCmeSolver:
                     int(carry.nstep) - ckpt_last >= checkpoint_every:
                 from .checkpoint import save_checkpoint
 
+                if self.mesh is None:
+                    mask_ck = mask.cpu().numpy()
+                    w_ck = w.to(torch.float64).cpu().numpy()
+                else:
+                    mask_ck, w_ck = mask, w
                 save_checkpoint(
-                    checkpoint_path, box, mask.cpu().numpy(),
-                    w.to(torch.float64).cpu().numpy(), carry, t_out, fsptol,
-                    krytol,
+                    checkpoint_path, box, mask_ck, w_ck, carry, t_out,
+                    fsptol, krytol, mesh=self.mesh,
                 )
                 ckpt_last = int(carry.nstep)
 
@@ -408,9 +470,13 @@ class BoxCmeSolver:
         """Largest total propensity over mass-supported cells (the event
         rate that scales the expansion reach)."""
         support = mask & (w.to(torch.float64) > self.config.droptol_start)
-        if not bool(torch.any(support)):
+        top = torch.any(support)
+        if self.mesh is not None:
+            top = self.mesh.any(top)
+        if not bool(top):
             support = mask
-        return float(torch.max(torch.where(support, fns.diag(mask), 0.0)))
+        lam = torch.max(torch.where(support, fns.diag(mask), 0.0))
+        return float(lam if self.mesh is None else self.mesh.max(lam))
 
     def m_eff(self, box: BoxSpace) -> int:
         """Krylov dimension cap of ``box`` after the basis memory clamp."""
@@ -435,10 +501,10 @@ class BoxCmeSolver:
         stats.hump_ratio = float(carry.hump / carry.vnorm)
         stats.final_norm_ratio = float(carry.beta / carry.vnorm)
 
-        mask_np = mask.cpu().numpy()
+        mask_np = host_gather(mask, self.mesh)
         # report clipped probabilities (the f32 path keeps the signed
         # vector in-solve to avoid accumulating clip bias)
-        w_np = np.maximum(w.to(torch.float64).cpu().numpy(), 0.0)
+        w_np = np.maximum(host_gather(w.to(torch.float64), self.mesh), 0.0)
         active = np.nonzero(mask_np)[0]
         states = torch.stack(
             box.species_counts(torch.from_numpy(active), torch.int32), dim=1
@@ -468,9 +534,14 @@ def solve_cme_box(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 50,
     resume_from: str | None = None,
-    device="cuda",
+    device=None,
+    mesh=None,
 ) -> BoxSolveResult:
-    solver = BoxCmeSolver(model, config, device=device)
+    """Solve the CME of ``model`` to time ``t`` on the masked-box backend
+    (:class:`BoxCmeSolver`).  ``device`` defaults to ``"cuda"``; with
+    ``mesh`` the solve is row-sharded and every rank of the mesh calls
+    this with the same arguments."""
+    solver = BoxCmeSolver(model, config, device=device, mesh=mesh)
     return solver.solve(
         t, initial_states, p0, fsp_tol, krylov_tol, verbosity=verbosity,
         checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,

@@ -7,6 +7,11 @@ the JAX package's format (``FORMAT_VERSION = 1``, same keys and dtypes).
 A snapshot written by either package's ``BoxCmeSolver`` resumes in the
 other: this system has no weights, so this is how state crosses between
 the two.
+
+Under a mesh of ranks (parallel/sharded.py) the file is the same: rank 0
+writes the gathered mask and vector, and every rank reads the whole file
+and keeps its own rows.  A snapshot therefore resumes on any number of
+ranks, and in either package, whatever wrote it.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from .boxspace.box import BoxSpace
 from .krylov.stepper import StepCarry, carry_from_numpy
@@ -33,8 +39,23 @@ def save_checkpoint(
     t_out: float,
     fsp_tol: float,
     krylov_tol: float,
+    mesh=None,
 ) -> None:
-    """Atomically write a solve snapshot (write temp + rename)."""
+    """Atomically write a solve snapshot (write temp + rename).
+
+    With ``mesh``, ``mask`` and ``w`` are this rank's rows (tensors): every
+    rank calls this, rank 0 writes the gathered arrays, and each rank
+    returns once the file is in place."""
+    if mesh is not None:
+        from .parallel.multihost import host_gather
+
+        mask = host_gather(mask, mesh)
+        w = host_gather(w.to(torch.float64), mesh)
+        if mesh.rank == 0:
+            save_checkpoint(path, box, mask, w, carry, t_out, fsp_tol,
+                            krylov_tol)
+        mesh.barrier()
+        return
     path = Path(path)
     fields = {f"carry_{k}": np.asarray(v) for k, v in carry._asdict().items()}
     tmp = path.with_suffix(path.suffix + ".tmp")
@@ -56,9 +77,10 @@ def save_checkpoint(
     tmp.replace(path)
 
 
-def load_checkpoint(path: str | Path):
+def load_checkpoint(path: str | Path, mesh=None):
     """Returns (box, mask, w, carry, t_out, fsp_tol, krylov_tol) with
-    numpy mask/w and a host StepCarry."""
+    numpy mask/w and a host StepCarry; with ``mesh``, mask and w are this
+    rank's rows."""
     with np.load(Path(path)) as z:
         version = int(z["version"])
         if version != FORMAT_VERSION:
@@ -74,10 +96,14 @@ def load_checkpoint(path: str | Path):
         carry = carry_from_numpy(
             {k: z[f"carry_{k}"] for k in StepCarry._fields}
         )
+        mask, w = z["mask"], z["w"]
+        if mesh is not None:
+            z0, n = mesh.rows(box.volume)
+            mask, w = mask[z0:z0 + n], w[z0:z0 + n]
         return (
             box,
-            z["mask"],
-            z["w"],
+            mask,
+            w,
             carry,
             float(z["t_out"]),
             float(z["fsp_tol"]),

@@ -5,8 +5,15 @@
 on the box backend, print per-step statistics and the elapsed wall time,
 optionally save the final (states, probabilities) to ``.npz``.  It takes
 the flags of the JAX package's ``kfs solve`` plus ``--device`` (default
-``cuda``); the table backend and multi-device flags are not ported yet and
-raise ``NotImplementedError``.
+``cuda``); the table backend is not ported yet and raises
+``NotImplementedError``.
+
+``--devices N`` row-shards the solve over N ranks of this host, one
+process each (parallel/multihost.py ``spawn``): one card per rank with
+NCCL, or gloo ranks on the CPU with ``--device cpu``.  ``--multihost``
+joins the process group that ``torchrun`` describes; every process then
+solves its rows on ``--device`` and rank 0 prints (without torchrun's
+variables it is a mesh of one rank on ``--device``).
 
 ``kfs-torch models`` lists the built-in model library (all seven models,
 custom-propensity ones included, solve on both devices); ``kfs-torch
@@ -24,7 +31,7 @@ from pathlib import Path
 import numpy as np
 
 
-def _load(spec: str, params: list[float] | None):
+def _load(spec: str, params: list[float] | None, quiet: bool = False):
     from .models.library import DRIVER_PARAMETERS, LIBRARY, get_model
     from .models.model import load_model
 
@@ -44,10 +51,11 @@ def _load(spec: str, params: list[float] | None):
             # TestSolverFromFile.f90:31) so `kfs solve models/x.input`
             # solves the same CME as the corresponding driver program
             params = DRIVER_PARAMETERS[path.stem]
-            print(
-                f"kfs: using reference-driver parameters for {path.stem}: "
-                f"{params} (override with --params)"
-            )
+            if not quiet:
+                print(
+                    f"kfs: using reference-driver parameters for "
+                    f"{path.stem}: {params} (override with --params)"
+                )
     if params is not None:
         model.reset_parameters(params)
     return model
@@ -64,22 +72,10 @@ def _parse_state(text: str | None, n_species: int) -> np.ndarray:
     return x0[None, :]
 
 
-def cmd_solve(args) -> int:
-    from .boxsolver import solve_cme_box
+def _solve_kwargs(args) -> dict:
+    """The solve's keyword arguments from the command line."""
     from .config import SolverConfig
 
-    if args.backend != "box":
-        raise NotImplementedError(
-            "the table backend is not ported yet (ROADMAP.md Queue A, "
-            "slice 6)"
-        )
-    if args.devices or args.multihost:
-        raise NotImplementedError(
-            "multi-device solves are not ported yet (ROADMAP.md Queue A, "
-            "slice 3)"
-        )
-    model = _load(args.model, args.params)
-    x0 = _parse_state(args.x0, model.n_species)
     cfg_kwargs = {}
     if args.dtype:
         cfg_kwargs["dtype"] = args.dtype
@@ -87,38 +83,101 @@ def cmd_solve(args) -> int:
         cfg_kwargs["fused_steps"] = False
     if args.table_operator:
         cfg_kwargs["table_operator"] = args.table_operator
-    config = SolverConfig(**cfg_kwargs)
-
-    kwargs = {}
+    kwargs = dict(
+        fsp_tol=args.fsp_tol,
+        krylov_tol=args.krylov_tol,
+        config=SolverConfig(**cfg_kwargs),
+        verbosity=args.verbose,
+    )
     if args.checkpoint:
         kwargs["checkpoint_path"] = args.checkpoint
         kwargs["checkpoint_every"] = args.checkpoint_every
     if args.resume:
         kwargs["resume_from"] = args.resume
+    return kwargs
 
+
+def _profiled(profile_dir):
     import contextlib
 
-    profile_cm = contextlib.nullcontext()
-    if args.profile:
-        import torch.profiler as tp
+    if not profile_dir:
+        return contextlib.nullcontext()
+    import torch.profiler as tp
 
-        profile_cm = tp.profile(
-            on_trace_ready=tp.tensorboard_trace_handler(args.profile)
+    return tp.profile(on_trace_ready=tp.tensorboard_trace_handler(profile_dir))
+
+
+def _solve_rank(mesh, args):
+    """One rank of ``solve --devices N``: the sharded solve of this rank's
+    rows.  Rank 0 returns the result (every rank holds the whole of it),
+    the others None; only rank 0 prints steps and writes the profile."""
+    from .boxsolver import solve_cme_box
+
+    model = _load(args.model, args.params, quiet=True)
+    kwargs = _solve_kwargs(args)
+    if mesh.rank:
+        kwargs["verbosity"] = 0
+    with _profiled(args.profile if mesh.rank == 0 else None):
+        res = solve_cme_box(model, args.t, _parse_state(args.x0,
+                                                        model.n_species),
+                            mesh=mesh, **kwargs)
+    return res if mesh.rank == 0 else None
+
+
+def _spawn_ranks(args):
+    """Rank 0's result of ``solve --devices N`` on this host."""
+    import torch
+
+    from .parallel.multihost import spawn
+
+    n = args.devices
+    if torch.device(args.device).type == "cuda":
+        visible = torch.cuda.device_count()
+        if n > visible:
+            raise SystemExit(
+                f"kfs-torch: --devices {n} requested but only {visible} "
+                "CUDA devices visible (--device cpu runs gloo ranks on the "
+                "CPU)"
+            )
+        devices, backend = [f"cuda:{r}" for r in range(n)], "nccl"
+    else:
+        devices, backend = [args.device] * n, "gloo"
+    return spawn(_solve_rank, devices, (args,), backend=backend)[0]
+
+
+def cmd_solve(args) -> int:
+    from .boxsolver import solve_cme_box
+
+    if args.backend != "box":
+        raise NotImplementedError(
+            "the table backend is not ported yet (ROADMAP.md Queue A, "
+            "slice 6)"
         )
+    model = _load(args.model, args.params)
+    x0 = _parse_state(args.x0, model.n_species)
 
     t0 = time.perf_counter()
-    with profile_cm:
-        res = solve_cme_box(
-            model,
-            args.t,
-            x0,
-            fsp_tol=args.fsp_tol,
-            krylov_tol=args.krylov_tol,
-            config=config,
-            verbosity=args.verbose,
-            device=args.device,
-            **kwargs,
-        )
+    if args.multihost:
+        import torch
+
+        from .parallel import multihost
+
+        on_cpu = torch.device(args.device).type == "cpu"
+        multihost.initialize(backend="gloo" if on_cpu else None)
+        # the mesh is on the device asked for, launched or not: a run
+        # without torchrun's variables is one rank there
+        mesh = multihost.global_mesh(args.device)
+        with _profiled(args.profile if mesh.rank == 0 else None):
+            res = solve_cme_box(model, args.t, x0, mesh=mesh,
+                                **_solve_kwargs(args))
+        if mesh.rank:
+            return 0
+    elif args.devices:
+        res = _spawn_ranks(args)
+    else:
+        with _profiled(args.profile):
+            res = solve_cme_box(model, args.t, x0, device=args.device,
+                                **_solve_kwargs(args))
     wall = time.perf_counter() - t0
 
     if args.log_steps:
@@ -130,7 +189,8 @@ def cmd_solve(args) -> int:
 
     s = res.stats
     print(f"model          : {model.name or args.model}")
-    print(f"backend        : {args.backend} ({args.device})")
+    ranks = f", {args.devices} ranks" if args.devices else ""
+    print(f"backend        : {args.backend} ({args.device}{ranks})")
     print(f"t_final        : {s.t_final:g}")
     print(f"final FSP size : {s.final_fsp_size}")
     print(f"wsum           : {res.wsum:.10f}   (1-wsum = {1 - res.wsum:.3e})")
@@ -154,6 +214,7 @@ def cmd_solve(args) -> int:
             "model": model.name or args.model,
             "backend": args.backend,
             "device": args.device,
+            "ranks": args.devices or 1,
             "t": s.t_final,
             "fsp_size": s.final_fsp_size,
             "wsum": res.wsum,
@@ -236,11 +297,13 @@ def main(argv=None) -> int:
                     "fall back to float64 under auto and are refused "
                     "under explicit float32")
     ps.add_argument("--devices", type=int, metavar="N",
-                    help="row-partition the solve over N devices (not "
-                    "ported yet)")
+                    help="row-partition the solve over N ranks of this "
+                    "host: one card each (NCCL), or gloo ranks on the CPU "
+                    "with --device cpu")
     ps.add_argument("--multihost", action="store_true",
-                    help="mesh over all devices of all processes (not "
-                    "ported yet)")
+                    help="row-partition the solve over the ranks of the "
+                    "process group torchrun describes (one process per "
+                    "card); rank 0 prints")
     ps.add_argument("--no-fused", action="store_true",
                     help="disable the fused device main loop (the port "
                     "always runs the stepwise loop)")

@@ -23,9 +23,10 @@ from typing import Callable, NamedTuple
 import torch
 
 
-def dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def dot64(a: torch.Tensor, b: torch.Tensor, reduce=None) -> torch.Tensor:
     """<a, b> with float64 accumulation, at ~float32 cost (a 0-d float64
-    tensor on the vectors' device).
+    tensor on the vectors' device).  ``reduce`` (a mesh's ``sum``) turns
+    this rank's partial dot into the dot of the whole row-sharded vectors.
 
     A plain f32 tree-dot over n elements carries absolute error
     ~log2(n) * eps32 * sum|a_i b_i| — for near-orthogonal Arnoldi vectors
@@ -35,12 +36,16 @@ def dot64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     cross-block reduction in f64.
     """
     if a.dtype == torch.float64:
-        return torch.dot(a, b)
-    p = a * b
-    n = p.shape[0]
-    if n % 128:
-        return torch.sum(p.to(torch.float64))
-    return torch.sum(torch.sum(p.reshape(-1, 128), dim=1).to(torch.float64))
+        d = torch.dot(a, b)
+    else:
+        p = a * b
+        n = p.shape[0]
+        if n % 128:
+            d = torch.sum(p.to(torch.float64))
+        else:
+            d = torch.sum(
+                torch.sum(p.reshape(-1, 128), dim=1).to(torch.float64))
+    return d if reduce is None else reduce(d)
 
 
 class ArnoldiState(NamedTuple):
@@ -60,6 +65,7 @@ def arnoldi_extend(
     m: int,
     qiop: int,
     break_tol: float,
+    reduce=None,
 ) -> ArnoldiState:
     """Extend the Arnoldi factorization from column ``jold`` to ``m``.
 
@@ -72,6 +78,8 @@ def arnoldi_extend(
       jold, m: 1-based resume/target columns, jold <= m.
       qiop: orthogonalization window (reference QIOP=2).
       break_tol: happy-breakdown tolerance.
+      reduce: a mesh's ``sum`` when V holds this rank's rows of a
+        row-sharded basis (every dot is then over the whole vectors).
     """
     f = V.dtype
     nmult = 0
@@ -86,10 +94,10 @@ def arnoldi_extend(
             vi = V[i - 1]
             # f64-accumulated coefficient (H is float64); the AXPY stays
             # in the basis dtype
-            hij = dot64(vi, w)
+            hij = dot64(vi, w, reduce)
             w = w - hij.to(f) * vi
             H[i - 1, j - 1] = hij
-        hj1j = torch.sqrt(dot64(w, w))
+        hj1j = torch.sqrt(dot64(w, w, reduce))
         if float(hj1j) <= break_tol:
             brk, mb = True, j
             break
@@ -102,7 +110,7 @@ def arnoldi_extend(
         # extra matvec for the 2-corrected error estimate
         # (KrylovSolver.f90:261-263)
         w = matvec(V[m])  # A v_{m+1}
-        avnorm = float(torch.sqrt(dot64(w, w)))
+        avnorm = float(torch.sqrt(dot64(w, w, reduce)))
         nmult += 1
     return ArnoldiState(V=V, H=H, breakdown=brk, mbrkdwn=mb, avnorm=avnorm,
                         nmult=nmult)

@@ -174,6 +174,7 @@ def make_step_fn(
     matvec_builder: Callable,
     config: SolverConfig,
     op_info: Callable,
+    reduce: Callable | None = None,
 ):
     """Build the single-attempted-step function.
 
@@ -184,6 +185,10 @@ def make_step_fn(
       op_info: op -> (n_active, n_reactions[, anorm_est]) host numbers for
         the cost model, the Krylov dimension bound and the scaled
         breakdown threshold.
+      reduce: a mesh's ``sum`` when ``op`` and ``w`` are this rank's rows
+        of a row-sharded box: every sum over the cell axis (Arnoldi dots,
+        FSP mass, norms) then runs over all ranks, and every rank takes the
+        same branches.  None on one device.
 
     Returns:
       step(op, w, carry, t_out, fsptol, krytol) -> StepResult.  The Krylov
@@ -212,6 +217,10 @@ def make_step_fn(
         expm_fn = expm_pade
 
     basis: dict = {}
+
+    def total(t):
+        """A float64 sum over the cell axis (over every rank's rows)."""
+        return t if reduce is None else reduce(t)
 
     def get_basis(w):
         key = (w.shape[0], w.dtype, w.device)
@@ -277,7 +286,7 @@ def make_step_fn(
 
         # ------------------------------------------------ step set-up ----
         wsum_start = (
-            _F64(float(torch.sum(w, dtype=torch.float64)))
+            _F64(float(total(torch.sum(w, dtype=torch.float64))))
             if crit_floor else None
         )
         t_step = np.minimum(t_out_abs - sc.t_now, sc.t_new)
@@ -312,7 +321,8 @@ def make_step_fn(
                 and ireject + imreject <= hard_attempts:
             # ---- Arnoldi phase (labels 101-300) -------------------------
             if needs_arnoldi:
-                st = arnoldi_extend(matvec, V, H, jold, m, qiop, break_eff)
+                st = arnoldi_extend(matvec, V, H, jold, m, qiop, break_eff,
+                                    reduce)
                 brk = st.breakdown
                 k1 = 0 if brk else 2
                 if brk:
@@ -440,7 +450,7 @@ def make_step_fn(
         if crit_floor:
             # float64 column sums of the basis: the criterion mass is then
             # measured entirely in f64, free of w-assembly rounding noise
-            colsum = torch.sum(V[:mx], dim=1, dtype=torch.float64)
+            colsum = total(torch.sum(V[:mx], dim=1, dtype=torch.float64))
 
         def assemble_w(E):
             # w = beta * V @ E[:,0] (KrylovSolver.f90:444)
@@ -465,7 +475,7 @@ def make_step_fn(
             # so an overshoot beyond the budget is equally disqualifying
             # (the reference checks only wsum >= 1 - bound,
             # KrylovSolver.f90:458)
-            wsum = _F64(float(torch.sum(w_c, dtype=torch.float64)))
+            wsum = _F64(float(total(torch.sum(w_c, dtype=torch.float64))))
             b = bound(sc.t_now + t_step)
             return w_c, wsum, bool((wsum >= 1.0 - b) and (wsum <= 1.0 + b))
 
@@ -530,7 +540,7 @@ def make_step_fn(
         if crit_floor:
             # f32: pin the stored mass to the f64 bookkeeping (1 - spent)
             target = 1.0 - spent_new
-            actual = float(torch.sum(w_final, dtype=torch.float64))
+            actual = float(total(torch.sum(w_final, dtype=torch.float64)))
             if advanced and actual > 0.0:
                 w_final = w_final * float(target / actual)
             wsum_new = target if advanced else sc.wsum_old
@@ -549,7 +559,7 @@ def make_step_fn(
         t_ssa = np.minimum(t_new_eff, t_out_abs - t_now_new)
 
         beta_new = math.sqrt(
-            float(torch.sum(w_final * w_final, dtype=torch.float64))
+            float(total(torch.sum(w_final * w_final, dtype=torch.float64)))
         )
         err_final = np.maximum(err_loc, rndoff)
         carry = carry_from_numpy(dict(

@@ -18,6 +18,12 @@ device the solve's matvec is a hand-written Hopper kernel of
 propensity callables).  Every field below is built once per box geometry
 on the solve's device (the JAX package recomputes them inside each jitted
 matvec, where XLA fuses them).
+
+Under a mesh of ranks (parallel/sharded.py) each rank holds the rows
+``[z0, z0+L)`` of the flat box: the fields, validity masks and diagonal
+take a ``rows=(z0, L)`` argument and are built from global indices, and the
+matvec, the dilation and the face test exchange halos or reduce over the
+ranks (ops/halo.py).
 """
 
 from __future__ import annotations
@@ -68,14 +74,27 @@ def make_propensity_evaluator(
     return evaluate
 
 
+def _cells(box: BoxSpace, device, rows=None) -> torch.Tensor:
+    """Global flat indices of the whole box, or of the rows
+    ``(z0, L)`` = cells ``[z0, z0+L)`` of one rank."""
+    z0, n = (0, box.volume) if rows is None else rows
+    return torch.arange(z0, z0 + n, dtype=torch.int64, device=device)
+
+
+def _rows(box: BoxSpace, mesh=None) -> tuple[int, int]:
+    """(z0, L) of this rank's rows under ``mesh``, else the whole box."""
+    return (0, box.volume) if mesh is None else mesh.rows(box.volume)
+
+
 def propensity_fields(model: Model, box: BoxSpace, dtype=torch.float64,
-                      device="cpu") -> torch.Tensor:
+                      device="cpu", rows=None) -> torch.Tensor:
     """(R, vol) tensor of every reaction's propensity a_k at every cell of
-    the box, evaluated in float64 through :func:`make_propensity_evaluator`
-    and then cast to ``dtype`` — the operand the direct-form stencil (plain
-    version and ``direct_stencil`` kernel alike) reads."""
+    the box (at the cells of ``rows``, see :func:`_cells`, when given),
+    evaluated in float64 through :func:`make_propensity_evaluator` and then
+    cast to ``dtype`` — the operand the direct-form stencil (plain version
+    and ``direct_stencil`` kernel alike) reads."""
     evaluate = make_propensity_evaluator(model, box, torch.float64, device)
-    flat = torch.arange(box.volume, dtype=torch.int64, device=device)
+    flat = _cells(box, device, rows)
     return torch.stack(
         [evaluate(flat, k) for k in range(model.n_reactions)]
     ).to(dtype)
@@ -97,32 +116,35 @@ def _dest_valid(box: BoxSpace, flat: torch.Tensor, k: int) -> torch.Tensor:
     return ok
 
 
-def dest_valid_masks(box: BoxSpace, device="cpu") -> list[torch.Tensor]:
-    """``_dest_valid`` of every reaction over the whole box (built once per
-    geometry, reused by every dilation round)."""
-    flat = torch.arange(box.volume, dtype=torch.int64, device=device)
+def dest_valid_masks(box: BoxSpace, device="cpu",
+                     rows=None) -> list[torch.Tensor]:
+    """``_dest_valid`` of every reaction over the whole box, or over the
+    cells of ``rows`` (one rank's shard, :func:`_cells`) from their global
+    indices (built once per geometry, reused by every dilation round)."""
+    flat = _cells(box, device, rows)
     return [_dest_valid(box, flat, k)
             for k in range(box.stoichiometry.shape[0])]
 
 
 def _axis_field(box: BoxSpace, tabs_by_species: dict, const: float, dtype,
-                device="cpu"):
-    """Broadcast outer product of per-species 1-D tables over the box,
-    flattened to (vol,)."""
-    shape = box.shape
-    nd = len(shape)
+                device="cpu", rows=None):
+    """Outer product ``const * prod_s tab_s[c_s(z)]`` of per-species 1-D
+    tables at the cells of ``rows`` (the whole box by default,
+    :func:`_cells`), indexed from their global coordinates.  Every cell's
+    products are taken in the same order whatever the rows, so a rank's
+    field is the bits of the slice of the whole field."""
+    flat = _cells(box, device, rows)
     arr = None
     for s, tab in tabs_by_species.items():
-        ax = box.axis_of_species[s]
-        t = torch.as_tensor(tab, dtype=dtype, device=device).reshape(
-            (1,) * ax + (shape[ax],) + (1,) * (nd - ax - 1)
-        )
+        sh = int(box.shift_of_species[s])
+        bits = int(box.bits_of_species[s])
+        t = torch.as_tensor(tab, dtype=dtype, device=device)[
+            (flat >> sh) & ((1 << bits) - 1)]
         arr = t if arr is None else arr * t
-    c = torch.as_tensor(const, dtype=dtype, device=device)
     if arr is None:
-        return torch.full((box.volume,), float(const), dtype=dtype,
+        return torch.full(flat.shape, float(const), dtype=dtype,
                           device=device)
-    return (c * arr).broadcast_to(shape).reshape(box.volume)
+    return torch.as_tensor(const, dtype=dtype, device=device) * arr
 
 
 def _factored_reaction_tables(model: Model, box: BoxSpace):
@@ -161,10 +183,11 @@ def _factored_reaction_tables(model: Model, box: BoxSpace):
     return out
 
 
-def _diag_field(tables, box: BoxSpace, dtype, device):
-    """D = sum_k const_k prod_s t_{k,s}: the total outflow rate per cell."""
+def _diag_field(tables, box: BoxSpace, dtype, device, rows=None):
+    """D = sum_k const_k prod_s t_{k,s}: the total outflow rate per cell
+    (of the cells of ``rows`` when given)."""
     return sum(
-        _axis_field(box, t_tabs, const, dtype, device)
+        _axis_field(box, t_tabs, const, dtype, device, rows)
         for const, _, t_tabs in tables
     )
 
@@ -217,7 +240,7 @@ def make_stencil_matvec(model: Model, box: BoxSpace, dtype=torch.float64,
 
 
 def select_stencil_matvec(model: Model, box: BoxSpace, config, dtype,
-                          device="cuda"):
+                          device="cuda", mesh=None):
     """Pick the SpMV implementation for a solve on ``device``.
 
     * CUDA, separable model: the hand-written Hopper kernel ``box_stencil``
@@ -226,16 +249,37 @@ def select_stencil_matvec(model: Model, box: BoxSpace, config, dtype,
       expressions, custom propensities): the hand-written Hopper kernel
       ``direct_stencil`` (``stencil_cuda.make_direct_stencil_matvec``).
     * CPU: the plain PyTorch version (:func:`make_stencil_matvec`).
+    * With ``mesh`` (a ``parallel.sharded.ShardMesh``, a mesh of one rank
+      included): the halo-exchange matvec of ops/halo.py on this rank's
+      rows, through the kernel ``halo_stencil`` on CUDA and its plain
+      version on the CPU.  Models that do not factor, and
+      ``config.use_halo=False`` (the JAX package's GSPMD stencil), are not
+      ported under a mesh and raise ``NotImplementedError``.
 
     ``config.use_pallas`` pins TPU kernel generations in the JAX package
     and is accepted and ignored here.
     """
-    del config  # use_pallas has no meaning on this backend
     dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
+    if mesh is not None:
+        if not getattr(config, "use_halo", True):
+            raise NotImplementedError(
+                "use_halo=False (the GSPMD-partitioned stencil) is not "
+                "ported to the sharded solve (ROADMAP.md Queue A, item 15)"
+            )
+        from .halo import make_halo_stencil_matvec
+
+        mv = make_halo_stencil_matvec(model, box, mesh, dtype)
+        if mv is None:
+            raise NotImplementedError(
+                f"model {model.name!r} does not factor per species; its "
+                "sharded solve (the JAX package's GSPMD direct stencil) is "
+                "not ported yet (ROADMAP.md Queue A, item 14)"
+            )
+        return mv
     if dev.type == "cpu":
         return make_stencil_matvec(model, box, dtype, dev)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
     from . import stencil_cuda
 
     if _factored_reaction_tables(model, box) is None:
@@ -244,16 +288,17 @@ def select_stencil_matvec(model: Model, box: BoxSpace, config, dtype,
 
 
 def make_diag_fn(model: Model, box: BoxSpace, dtype=torch.float64,
-                 device="cpu"):
+                 device="cpu", rows=None):
     """Build diag(mask) -> total propensity sum_k a_k(x) per active cell
     (0 elsewhere) — the reference's DIAG column (StateSpace.f90:211-212),
     used to event-scale FSP expansion (diag * t = expected number of
-    reaction firings at that state over horizon t)."""
+    reaction firings at that state over horizon t).  With ``rows`` the
+    mask is one rank's shard of those cells (:func:`_cells`)."""
     tables = _factored_reaction_tables(model, box)
     if tables is not None:
-        d = _diag_field(tables, box, dtype, device)
+        d = _diag_field(tables, box, dtype, device, rows)
     else:
-        d = sum(propensity_fields(model, box, dtype, device))
+        d = sum(propensity_fields(model, box, dtype, device, rows))
 
     def diag(mask):
         return torch.where(mask, d, 0)
@@ -273,33 +318,60 @@ def expansion_rounds(lam: float, t_ssa: float, rounds_min: int,
 
 
 def dilate_mask(box: BoxSpace, mask: torch.Tensor,
-                valid: list[torch.Tensor] | None = None) -> torch.Tensor:
+                valid: list[torch.Tensor] | None = None,
+                mesh=None) -> torch.Tensor:
     """One round of 1-step reachability: activate every legal successor of
     an active cell (the ONESTEP_EXTENDER analog, StateSpace.f90:347-396).
-    ``valid`` is :func:`dest_valid_masks` of this box, built here when
-    not given."""
+    ``valid`` is :func:`dest_valid_masks` of this box (of this rank's rows
+    under a mesh), built here when not given.
+
+    The predecessor of cell i under reaction k is cell i - off_k, read from
+    the mask padded with H = max_k |off_k| cells on each side: zeros on one
+    device (a valid predecessor never leaves the box), the neighbours' rows
+    through the mask's halo under ``mesh`` (the mask is then this rank's
+    rows)."""
+    from .halo import halo_width
+
+    rows = _rows(box, mesh)
     if valid is None:
-        valid = dest_valid_masks(box, mask.device)
+        valid = dest_valid_masks(box, mask.device, rows)
+    H, n = halo_width(box), rows[1]
+    if mesh is None:
+        left = right = torch.zeros(H, dtype=torch.bool, device=mask.device)
+    else:
+        left, right = mesh.exchange_halo(mask, H)
+    padded = torch.cat([left, mask, right])
     out = mask
     for k in range(box.stoichiometry.shape[0]):
-        rolled = torch.roll(mask, int(box.offsets[k]))
-        out = out | (rolled & valid[k])
+        src = H - int(box.offsets[k])
+        out = out | (padded[src:src + n] & valid[k])
     return out
 
 
-def active_touches_face(box: BoxSpace, mask) -> np.ndarray:
+def make_dilate_fn(box: BoxSpace, device="cpu", mesh=None):
+    """dilate(mask) -> one :func:`dilate_mask` round on this box (on this
+    rank's rows under ``mesh``), its validity masks built once."""
+    valid = dest_valid_masks(box, device, _rows(box, mesh))
+    return lambda mask: dilate_mask(box, mask, valid, mesh)
+
+
+def active_touches_face(box: BoxSpace, mask, mesh=None) -> np.ndarray:
     """Per-species flag: an active cell sits within the largest |nu| of the
-    axis' upper face — growing that axis is warranted before expanding."""
-    m = torch.as_tensor(mask).reshape(box.shape)
-    stoich = np.asarray(box.stoichiometry)
-    out = np.zeros(box.n_species, dtype=bool)
+    axis' upper face — growing that axis is warranted before expanding.
+    Cells are tested from their global coordinates; with ``mesh`` the mask
+    is this rank's rows and the flags are or-ed over the ranks."""
+    reach = np.abs(np.asarray(box.stoichiometry)).max(axis=0)
+    flat = _cells(box, mask.device, _rows(box, mesh))
+    hit = []
     for s in range(box.n_species):
-        reach = int(np.abs(stoich[:, s]).max())
-        if reach == 0:
+        if reach[s] == 0:
+            hit.append(torch.zeros((), dtype=torch.bool, device=mask.device))
             continue
-        ax = box.axis_of_species[s]
-        ext = box.shape[ax]
-        sl = [slice(None)] * len(box.shape)
-        sl[ax] = slice(ext - reach, ext)
-        out[s] = bool(m[tuple(sl)].any())
-    return out
+        sh = int(box.shift_of_species[s])
+        ext = 1 << int(box.bits_of_species[s])
+        co = (flat >> sh) & (ext - 1)
+        hit.append(torch.any(mask & (co >= ext - int(reach[s]))))
+    hit = torch.stack(hit)
+    if mesh is not None:
+        hit = mesh.any(hit)
+    return hit.cpu().numpy()

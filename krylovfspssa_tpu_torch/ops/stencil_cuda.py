@@ -12,7 +12,13 @@ Queue B rows B1-B4).
 model that ``factorize_model`` refuses (coupled expressions, custom
 propensity callables) from per-geometry propensity fields.  It replaces
 ``make_pallas_stencil_matvec_v2`` and ``make_pallas_stencil_matvec`` (v1),
-Queue B rows B5 and B6.  Each source header says what bounds its kernel.
+Queue B rows B5 and B6.
+
+``csrc/halo_stencil.cu`` computes ``box_stencil``'s function on one rank's
+rows of a row-sharded box, reading the cells across the shard boundary
+from the two halos the ranks exchange (ops/halo.py).  It replaces
+``make_pallas_local_matvec_v6`` and ``make_pallas_local_matvec_v5``, Queue
+B rows B7 and B8.  Each source header says what bounds its kernel.
 
 The kernels are compiled on first use with ``nvcc`` into
 ``build/krylovfspssa_tpu_torch/libkfs_kernels.so`` (rebuilt when the
@@ -45,6 +51,9 @@ from .stencil import _diag_field, _factored_reaction_tables, propensity_fields
 LAUNCHES = 0
 #: the same count for :func:`direct_stencil`
 DIRECT_LAUNCHES = 0
+#: the same count for :func:`halo_stencil` (per process: each rank of a
+#: sharded solve counts its own launches)
+HALO_LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build" / "krylovfspssa_tpu_torch"
@@ -113,6 +122,12 @@ def _library():
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
+        for name in ("kfs_halo_stencil_f64", "kfs_halo_stencil_f32"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p
+            ]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -145,16 +160,19 @@ class StencilPack:
         return self.tables.dtype
 
 
-def pack_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
-                 device="cuda") -> StencilPack:
-    """Build the kernel operands for one box geometry (separable models)."""
+def _separable_tables(model: Model, box: BoxSpace):
     tables = _factored_reaction_tables(model, box)
     if tables is None:
         raise ValueError(
             f"model {model.name!r} is not separable; its operands are "
             "pack_direct_stencil's (kernel direct_stencil)"
         )
-    vol = _checked_volume(box)
+    return tables
+
+
+def _factor_operands(tables, box: BoxSpace, dtype, device) -> dict:
+    """The shifted factor tables, consts and int32 meta of the separable
+    kernels (``box_stencil``, ``halo_stencil``)."""
     shifts = box.shift_of_species
     bits = box.bits_of_species
     starts, facs, chunks, pos = [0], [], [], 0
@@ -165,35 +183,52 @@ def pack_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
             pos += len(tab)
         starts.append(len(facs) // 3)
     meta = np.array([int(o) for o in box.offsets] + starts + facs, np.int32)
-    return StencilPack(
+    return dict(
         tables=torch.as_tensor(np.concatenate(chunks), dtype=dtype,
                                device=device),
         consts=torch.tensor([c for c, _, _ in tables], dtype=dtype,
                             device=device),
         meta=torch.as_tensor(meta, device=device),
-        diag=_diag_field(tables, box, torch.float64, device).to(dtype),
-        volume=vol,
         n_reactions=len(tables),
         n_factors=len(facs) // 3,
     )
 
 
+def pack_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
+                 device="cuda") -> StencilPack:
+    """Build the kernel operands for one box geometry (separable models)."""
+    tables = _separable_tables(model, box)
+    return StencilPack(
+        **_factor_operands(tables, box, dtype, device),
+        diag=_diag_field(tables, box, torch.float64, device).to(dtype),
+        volume=_checked_volume(box),
+    )
+
+
+def _factor_products(meta, tables, consts, z, k, R):
+    """u_k(z) = const_k * prod_s u_{k,s}[c_s(z)], in the kernels' order."""
+    start, fac = meta[R:2 * R + 1], meta[2 * R + 1:]
+    u = consts[k].expand(z.shape[0])
+    for f in range(start[k], start[k + 1]):
+        shift, emask, toff = fac[3 * f:3 * f + 3]
+        u = u * tables[toff + ((z >> shift) & emask)]
+    return u
+
+
 def _box_stencil_plain(pack: StencilPack, mask: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, from the same operands."""
+    """The kernel's arithmetic in plain PyTorch, from the same operands:
+    :func:`_halo_stencil_plain` on the whole box with zero halos (the
+    shifted tables are zero wherever the source leaves the box, so the
+    kernel's wrap mod vol reads nothing that counts)."""
     R = pack.n_reactions
-    meta = pack.meta.tolist()
-    off, start, fac = meta[:R], meta[R:2 * R + 1], meta[2 * R + 1:]
-    z = torch.arange(pack.volume, dtype=torch.int64, device=x.device)
-    xm = torch.where(mask, x, 0)
-    y = -pack.diag * xm
-    for k in range(R):
-        u = pack.consts[k].expand(pack.volume)
-        for f in range(start[k], start[k + 1]):
-            shift, emask, toff = fac[3 * f:3 * f + 3]
-            u = u * pack.tables[toff + ((z >> shift) & emask)]
-        y = y + u * torch.roll(xm, off[k])
-    return torch.where(mask, y, 0)
+    halo = max(abs(o) for o in pack.meta[:R].tolist())
+    whole = HaloPack(tables=pack.tables, consts=pack.consts, meta=pack.meta,
+                     diag=pack.diag, volume=pack.volume, z0=0,
+                     rows=pack.volume, halo=halo, n_reactions=R,
+                     n_factors=pack.n_factors)
+    zeros = x.new_zeros(halo)
+    return _halo_stencil_plain(whole, mask, x, zeros, zeros)
 
 
 def _check_launch_args(name, vol, operand, mask, x):
@@ -370,3 +405,107 @@ def make_direct_stencil_matvec(model: Model, box: BoxSpace,
         return direct_stencil(pack, mask, x)
 
     return matvec
+
+
+# --------------------------------------------------------------------- #
+#        halo_stencil: one rank's rows of a sharded box (B7 / B8)       #
+# --------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloPack:
+    """``halo_stencil``'s operands for one rank's rows ``[z0, z0+rows)`` of
+    one box geometry, on the rank's device."""
+
+    #: shifted factor tables, consts and meta: ``box_stencil``'s
+    tables: torch.Tensor
+    consts: torch.Tensor
+    meta: torch.Tensor
+    #: the rows' slice of D (built in float64 from global coordinates, cast
+    #: to dtype): the same numbers as ``pack_stencil``'s diag there
+    diag: torch.Tensor
+    volume: int
+    z0: int
+    rows: int
+    #: H = max_k |off_k|, the length of each halo
+    halo: int
+    n_reactions: int
+    n_factors: int
+
+    @property
+    def dtype(self):
+        return self.tables.dtype
+
+
+def pack_halo_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
+                      device="cuda", z0: int = 0,
+                      rows: int | None = None) -> HaloPack:
+    """Build ``halo_stencil``'s operands for the rows ``[z0, z0+rows)`` of
+    one box geometry (separable models; the whole box by default)."""
+    from .halo import halo_width
+
+    tables = _separable_tables(model, box)
+    vol = _checked_volume(box)
+    rows = vol - z0 if rows is None else rows
+    if not (0 <= z0 and rows > 0 and z0 + rows <= vol):
+        raise ValueError(f"rows [{z0}, {z0 + rows}) outside a box of "
+                         f"{vol} cells")
+    return HaloPack(
+        **_factor_operands(tables, box, dtype, device),
+        diag=_diag_field(tables, box, torch.float64, device,
+                         rows=(z0, rows)).to(dtype),
+        volume=vol, z0=z0, rows=rows, halo=halo_width(box),
+    )
+
+
+def _halo_stencil_plain(pack: HaloPack, mask: torch.Tensor, x: torch.Tensor,
+                        left: torch.Tensor,
+                        right: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, from the same operands."""
+    R, H, n = pack.n_reactions, pack.halo, pack.rows
+    meta = pack.meta.tolist()
+    z = torch.arange(pack.z0, pack.z0 + n, dtype=torch.int64,
+                     device=x.device)
+    xm = torch.where(mask, x, 0)
+    xpad = torch.cat([left, xm, right])
+    y = -pack.diag * xm
+    for k in range(R):
+        u = _factor_products(meta, pack.tables, pack.consts, z, k, R)
+        # source of local cell i is local cell i - off_k: padded index
+        # H + i - off_k
+        src = H - meta[k]
+        y = y + u * xpad[src:src + n]
+    return torch.where(mask, y, 0)
+
+
+def halo_stencil(pack: HaloPack, mask: torch.Tensor, x: torch.Tensor,
+                 left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """y = A x on one rank's rows.  ``x`` and ``mask`` are the rows,
+    ``left``/``right`` the masked x at the H cells before and after them
+    (zero outside the box).  CUDA tensors launch the kernel (on the current
+    stream, without synchronising); CPU tensors take the plain version."""
+    global HALO_LAUNCHES
+    for name, h in (("left", left), ("right", right)):
+        if h.shape != (pack.halo,) or h.dtype != x.dtype or \
+                h.device != x.device:
+            raise ValueError(
+                f"halo_stencil: {name} halo {tuple(h.shape)} {h.dtype} on "
+                f"{h.device}, expected ({pack.halo},) {x.dtype} on "
+                f"{x.device}")
+    if x.device.type == "cpu":
+        return _halo_stencil_plain(pack, mask, x, left, right)
+    _check_launch_args("halo_stencil", pack.rows, pack.tables, mask, x)
+    if not (left.is_contiguous() and right.is_contiguous()):
+        raise ValueError("halo_stencil: halos must be contiguous")
+    lib = _library()
+    fn = (lib.kfs_halo_stencil_f64 if x.dtype == torch.float64
+          else lib.kfs_halo_stencil_f32)
+    y = torch.empty_like(x)
+    _launch("halo_stencil", fn, x.device, (
+        x.data_ptr(), mask.data_ptr(), left.data_ptr(), right.data_ptr(),
+        pack.diag.data_ptr(), pack.tables.data_ptr(), pack.consts.data_ptr(),
+        pack.meta.data_ptr(), y.data_ptr(), pack.rows, pack.z0, pack.halo,
+        pack.n_reactions, pack.n_factors, pack.tables.numel(),
+    ))
+    HALO_LAUNCHES += 1
+    return y

@@ -26,6 +26,7 @@ def drop_mask_device(
     dsum: float,
     droptol_start: float = 1.0e-8,
     inflow_guard: float = 1.0e-8,
+    reduce=None,
 ):
     """Compute the drop mask on the vectors' device.
 
@@ -35,25 +36,29 @@ def drop_mask_device(
         StateSpace.f90:486).
       active: (vol,) bool membership mask.
       dsum: droppable surplus mass.
+      reduce: a mesh's ``sum`` when the vectors are this rank's rows of a
+        row-sharded box (the ladder and the count are then over all ranks:
+        one all_reduce each).
 
     Returns:
       (mask (vol,) bool — True = drop, count int, droptol float).
     """
+    total = (lambda t: t) if reduce is None else reduce
     levels = [droptol_start / 10.0 ** i for i in range(_N_LEVELS)]
     # mass below each level, counting only 0 < w < level (FIND_DROPTOL);
     # one masked sum per level keeps the temporaries at O(vol)
     live = torch.where(active & (w > 0), w, 0.0)
-    sums = torch.stack(
+    sums = total(torch.stack(
         [torch.sum(torch.where(w < lev, live, 0.0)) for lev in levels]
-    ).tolist()
+    )).tolist()
     # first level whose mass fits; fall back to the smallest
     droptol = next((lev for lev, s in zip(levels, sums) if s < dsum),
                    levels[-1])
     mask = (w < droptol) & active & ~(inflow > inflow_guard)
-    return mask, int(mask.sum()), droptol
+    return mask, int(total(mask.sum())), droptol
 
 
-def drop_loss_rate(w, inflow, diag, dmask) -> float:
+def drop_loss_rate(w, inflow, diag, dmask, reduce=None) -> float:
     """Gross inflow rate into the drop set (the anti-thrash gate input).
 
     The reference's per-state inflow guard (StateSpace.f90:486-495) tests
@@ -70,7 +75,8 @@ def drop_loss_rate(w, inflow, diag, dmask) -> float:
       inflow: (vol,) f64 A @ w.
       diag: (vol,) f64 positive total-outflow diagonal D.
       dmask: (vol,) bool drop set.
+      reduce: a mesh's ``sum`` under a row-sharded box.
     """
     gross = inflow + diag * w
-    return float(torch.sum(torch.where(dmask, torch.clamp_min(gross, 0.0),
-                                       0.0)))
+    loss = torch.sum(torch.where(dmask, torch.clamp_min(gross, 0.0), 0.0))
+    return float(loss if reduce is None else reduce(loss))
