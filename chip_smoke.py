@@ -6,46 +6,58 @@ NVIDIA GPU.
     python3 chip_smoke.py --sharded-only    # several cards: [sharded] alone
 
 Builds the hand-written stencil kernels from ``krylovfspssa_tpu_torch/csrc``
-with nvcc, holds each against its plain PyTorch version on the card, and
-drives the port's three solve paths through ``solve_cme_box``/``BoxCmeSolver``
-on ``cuda``:
+with nvcc, drives the port's three solve paths through
+``solve_cme_box``/``BoxCmeSolver`` on ``cuda``, then holds each kernel
+against its plain PyTorch version on the card at the shapes of those paths:
 
   1. environment: card name and power limit, torch/CUDA versions, kernel
-     build time;
-  2. ``box_stencil`` vs its plain version at three box geometries (the
-     2^22-cell Goutsias box, a toggle box, a box smaller than one thread
-     block) in float64 and float32, with timings; plus a small toggle solve
-     on the card against the same solve on the CPU;
-  3. separable models (``box_stencil``): the reference driver
+     build time and nvcc's register report; a small toggle solve on the
+     card against the same solve on the CPU;
+  2. separable models (``box_stencil``): the reference driver
      TestSolverFromFile — toggle, t=1000, fsp_tol 1e-4, krylov_tol 1e-10
      (float64) — and the Goutsias example (reference
      examples/transcr6d.f90) at its reference tolerances to t=10, which
      ends in a 2^22-cell box;
-  4. ``direct_stencil`` vs its plain version on the 2^22-cell Goutsias box
-     (also against ``box_stencil``: the model is separable) and a 512x512
-     ``toggle_programmatic`` box, in float64 and float32, with timings;
-  5. custom propensities (``direct_stencil``): the CUSTOMPROP driver
+  3. custom propensities (``direct_stencil``): the CUSTOMPROP driver
      (reference examples/toggle.f90: ``toggle_programmatic``, t=100,
      fsp_tol 1e-4, krylov_tol 1e-10), and ``ge5d`` at real size through the
      library's callable and through ``models/ge5d_model.input`` (separable,
-     ``box_stencil``), which must agree; then ``direct_stencil`` vs its
-     plain version at the box the ge5d solve reached;
-  6. ``[halo]``: ``halo_stencil`` vs its plain version on every row shard
-     of the 2^22-cell Goutsias box and of the box the Goutsias solve of
-     phase 3 ended in (the one [sharded] runs), each cut into 1, 2 and 4
-     shards on one card (halos cut from the global vector), float64 and
-     float32, and the concatenated shards vs ``box_stencil`` on the whole
-     vector, with the times per shard beside ``box_stencil``'s;
-  7. ``[sharded]``: the Goutsias solve of phase 3 row-sharded through
+     ``box_stencil``), which must agree;
+  4. ``[sharded]``: the Goutsias solve of phase 2 row-sharded through
      ``solve_cme_box(..., mesh=...)`` in spawned ranks (one card per rank
      with NCCL when two or more cards are visible, up to 4; otherwise 2
-     gloo ranks on ``cuda:0``), held against the one-rank solve of phase 3,
+     gloo ranks on ``cuda:0``), held against the one-rank solve of phase 2,
      with the cost of one all_reduce and one halo swap, and once more with
      rank 0 under torch.profiler (collective counts, the largest device
-     items).
+     items);
+  5. ``[kernels]``: ``box_stencil`` vs its plain version at three box
+     geometries (the 2^22-cell Goutsias box, a 512x512 toggle box, a
+     128-cell box smaller than one thread block) in float64 and float32,
+     and on the final mask and w of the toggle and Goutsias solves of
+     phase 2 (the kernel's inputs on that path: about 24% and 1.4% of
+     their boxes active);
+  6. ``[direct]``: ``direct_stencil`` vs its plain version on the 2^22-cell
+     Goutsias box (also against ``box_stencil``: the model is separable), a
+     512x512 ``toggle_programmatic`` box and the box the ge5d solve
+     reached, in float64 and float32;
+  7. ``[halo]``: ``halo_stencil`` vs its plain version on every row shard
+     of the 2^22-cell Goutsias box and of the box the Goutsias solve of
+     phase 2 ended in (the one [sharded] runs), each cut into 1, 2 and 4
+     shards on one card (halos cut from the global vector), float64 and
+     float32, and the concatenated shards vs ``box_stencil`` on the whole
+     vector (bit for bit), with the times per shard beside
+     ``box_stencil``'s.
 
-Each solve path (3, 5 and 7) runs with the kernels' launch counts set to 0
-just before it and read just after (in each rank, for 7).  Each phase
+Every line of 5-7 gives the kernel's time, its plain version's, its bound
+(the bytes the function needs on this run's data over 3.35 TB/s: the
+mask and y everywhere, x and D or the fields only at active cells; or
+operations over the peak rate), its launches on the solve paths, and the time of one PyTorch
+call that computes the same y (a CSR SpMV of the masked generator, built
+from the kernel's operands; the port never calls it).  Inputs of the
+separable kernels meet their contract ``supp(x) ⊆ mask``.
+
+Each solve path (2, 3 and 4) runs with the kernels' launch counts set to 0
+just before it and read just after (in each rank, for 4).  Each phase
 prints its own lines with its wall time.  Any failure raises and exits
 non-zero.  The last lines are a JSON record of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -74,6 +86,11 @@ JAX_GOUTSIAS_T10 = dict(box_volume=1 << 22, box_shape=(32, 4, 4, 64, 32, 4),
 F64_RTOL = 1e-12
 F32_RTOL = 1e-5
 
+#: H100 SXM device memory rate, and its peak arithmetic rates outside the
+#: tensor cores (NVIDIA's data sheet): the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
 #: the ge5d scenario of tests/test_models_e2e.py (x0 = 0, fsp_tol 1e-4,
 #: krylov_tol 1e-8, box_min_log2 2) cut from t=2 to t=1: at t=2 the box
 #: outgrows max_box_volume (2^23) in both packages; by t=1 it is 2^23 cells
@@ -99,23 +116,153 @@ def _grown(model, x0, targets):
     return box
 
 
-def _time_ms(fn, *args, warmup=3, reps=30) -> float:
-    """Median milliseconds per call over ``reps`` CUDA-event-timed calls."""
+#: GPU clock cycles of the sleep that holds the stream while the host
+#: queues a timed run (about 5 ms at the H100's clocks)
+SLEEP_CYCLES = 10_000_000
+
+
+def _time_ms(fn, *args, warmup=3, launches=20, rounds=5) -> float:
+    """Device milliseconds per call: the stream sleeps while the host
+    queues ``launches`` calls between two CUDA events, so the calls run
+    back to back on the card whatever their host enqueue costs (ctypes,
+    checks, allocation); the median of ``rounds`` such runs, over the
+    count.  A function that synchronises with the host (the plain versions
+    read operands back) is timed at its host rate.  L2 is warm: each call
+    finds what the one before it left; at 2^18 cells every operand fits in
+    the 50 MB L2, at 2^22 cells (about 100 MB of x, D and y in float64) it
+    does not."""
     import torch
 
     for _ in range(warmup):
         fn(*args)
     torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
+    runs = []
+    for _ in range(rounds):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
-        fn(*args)
+        for _ in range(launches):
+            fn(*args)
         b.record()
-        pairs.append((a, b))
+        runs.append((a, b))
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+    return statistics.median(a.elapsed_time(b) / launches for a, b in runs)
+
+
+def _bound(nbytes, flops, dt):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move ``nbytes`` and do ``flops`` of type ``dt``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dt)[6:]]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _sep_bound(pack, mask, halos):
+    """box_stencil's / halo_stencil's bound from what the function needs
+    on this run's data: the mask and y over the rows, x and D at the active
+    cells (x is 0 elsewhere, by the contract), the halos; -D*x and a
+    multiply-add per reaction for every active cell."""
+    active = int(mask.sum())
+    item = pack.diag.element_size()
+    nbytes = (pack.rows * (1 + item) + 2 * active * item
+              + _nbytes(*halos))
+    return _bound(nbytes, active * (1 + 2 * pack.n_reactions), pack.dtype)
+
+
+def _csr(rows, cols, vals, shape):
+    """A CSR matrix (int32 indices) from coordinate lists."""
+    import torch
+
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    order = torch.argsort(rows * shape[1] + cols)
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=vals.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=shape[0]), 0)
+    return torch.sparse_csr_tensor(crow.int(), cols.int(), vals, shape,
+                                   check_invariants=False)
+
+
+def _sep_csr(pack, mask):
+    """The masked generator of a separable pack's rows as a CSR matrix
+    over the padded sources ``[left | x | right]`` (H cells each side),
+    from every factor of each reaction per cell (not the kernel's tile
+    table): the library yardstick, y = A @ xpad."""
+    import torch
+
+    from krylovfspssa_tpu_torch.ops import stencil_cuda as sc
+
+    H, n = pack.halo, pack.rows
+    i = torch.nonzero(mask).squeeze(1)
+    rows, cols, vals = [i], [H + i], [-pack.diag[i]]
+    for k, off in enumerate(pack.meta[:pack.n_reactions].tolist()):
+        u = sc._propensity(pack, k, pack.z0 + i)
+        j = i - off
+        inside = (j >= 0) & (j < n)
+        keep = (u != 0) & (~inside | mask[j.clamp(0, n - 1)])
+        rows.append(i[keep])
+        cols.append(H + j[keep])
+        vals.append(u[keep])
+    return _csr(rows, cols, vals, (n, n + 2 * H))
+
+
+def _direct_csr(pack, mask):
+    """direct_stencil's masked generator as a CSR matrix (the library
+    yardstick, y = A @ x), from the kernel's propensity fields."""
+    import torch
+
+    R, vol = pack.n_reactions, pack.volume
+    meta = pack.meta.tolist()
+    off, start, mv = meta[:R], meta[R:2 * R + 1], meta[2 * R + 1:]
+    i = torch.nonzero(mask).squeeze(1)
+    rows, cols, vals = [i], [i], [-pack.fields.sum(0)[i]]
+    for k in range(R):
+        ok = torch.ones_like(i, dtype=torch.bool)
+        for f in range(start[k], start[k + 1]):
+            shift, emask, nu = mv[3 * f:3 * f + 3]
+            pred = ((i >> shift) & emask) - nu
+            ok &= (pred >= 0) & (pred <= emask)
+        j = (i - off[k]) & (vol - 1)
+        a = pack.fields[k][j]
+        keep = ok & mask[j] & (a != 0)
+        rows.append(i[keep])
+        cols.append(j[keep])
+        vals.append(a[keep])
+    return _csr(rows, cols, vals, (vol, vol))
+
+
+def _library(matrix, v, ref, rtol, scale=None):
+    """Milliseconds of ``matrix @ v`` (the yardstick), after checking that
+    it gives the kernel's y to ``rtol`` x ``scale`` (default max|y|)."""
+    import torch
+
+    y = matrix @ v
+    if scale is None:
+        scale = float(torch.max(torch.abs(ref)))
+    err = float(torch.max(torch.abs(y - ref)))
+    if not err <= rtol * scale:
+        raise AssertionError(f"CSR yardstick disagrees with the kernel: "
+                             f"{err:.3e} > {rtol:g} x {scale:.3e}")
+    return _time_ms(torch.matmul, matrix, v)
+
+
+def _row(err, ms, plain_ms, bound, library_ms, launches):
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms, launches=launches)
+
+
+def _us(row) -> str:
+    return (f"kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.1f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}; "
+            f"{100 * row['bound_ms'] / row['ms']:.0f}% of it), CSR library "
+            f"{row['library_ms'] * 1e3:.1f} us, launches on the solve paths "
+            f"{row['launches']}")
 
 
 def phase_env():
@@ -130,8 +277,8 @@ def phase_env():
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
     info = stencil_cuda.build()
-    print(f"[env] kernels (box_stencil, direct_stencil, halo_stencil) built in "
-          f"{info.seconds:.2f} s -> {info.path}")
+    print(f"[env] kernels (sep_stencil for box_stencil and halo_stencil, "
+          f"direct_stencil) built in {info.seconds:.2f} s -> {info.path}")
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"[env]   {line.strip()}")
@@ -139,8 +286,23 @@ def phase_env():
     return smi
 
 
-def phase_kernels():
-    """Kernel vs plain version on the card; returns the flagship f64 row."""
+def _final_inputs(res):
+    """The mask and the (clipped) w a solve ended with, on the card: the
+    kernel's inputs on that solve path, not a random mask."""
+    import torch
+
+    idx = res.box.flat_index(res.states).to("cuda")
+    mask = torch.zeros(res.box.volume, dtype=torch.bool, device="cuda")
+    mask[idx] = True
+    x = torch.zeros(res.box.volume, dtype=torch.float64, device="cuda")
+    x[idx] = torch.as_tensor(res.probabilities, device="cuda")
+    return mask, x
+
+
+def phase_kernels(launches, finals):
+    """box_stencil vs its plain version on the card, on random masks and on
+    the final mask and w of the solves in ``finals`` ({name: (model,
+    result)}); returns the flagship (2^22-cell Goutsias, float64) row."""
     import torch
 
     from krylovfspssa_tpu_torch.models.library import (
@@ -148,10 +310,7 @@ def phase_kernels():
         repressilator_model,
         toggle_file_model,
     )
-    from krylovfspssa_tpu_torch.ops.stencil import make_stencil_matvec
-    from krylovfspssa_tpu_torch.ops.stencil_cuda import (
-        make_box_stencil_matvec,
-    )
+    from krylovfspssa_tpu_torch.ops import stencil_cuda as sc
 
     t0 = time.perf_counter()
     cases = [
@@ -161,38 +320,44 @@ def phase_kernels():
         ("repressilator-128", repressilator_model(), [[0, 0, 0]], [4, 4, 8]),
     ]
     flagship = None
-    for name, model, x0, targets in cases:
-        box = _grown(model, x0, targets)
-        for dt, rtol in ((torch.float64, F64_RTOL), (torch.float32, F32_RTOL)):
-            rng = np.random.default_rng(0)
-            mask = torch.as_tensor(rng.random(box.volume) < 0.6,
-                                   device="cuda")
-            x = torch.as_tensor(rng.random(box.volume), dtype=dt,
-                                device="cuda")
-            kern = make_box_stencil_matvec(model, box, dt, "cuda")
-            plain = make_stencil_matvec(model, box, dt, "cuda")
-            y_k = kern(mask, x)
-            y_p = plain(mask, x)
-            torch.cuda.synchronize()
-            err = float(torch.max(torch.abs(y_k - y_p)))
-            scale = float(torch.max(torch.abs(y_p)))
-            ms_k = _time_ms(kern, mask, x)
-            ms_p = _time_ms(plain, mask, x)
-            itemsize = x.element_size()
-            # compulsory traffic: x, D, y words and the mask byte per cell
-            gbytes = box.volume * (3 * itemsize + 1) / 1e9
-            print(f"[kernels] {name} {str(dt)[6:]} vol={box.volume} "
-                  f"max_abs_err={err:.3e} (limit {rtol:g} x {scale:.3e}) "
-                  f"kernel {ms_k * 1e3:.1f} us ({gbytes / ms_k * 1e3:.0f} "
-                  f"GB/s)  plain {ms_p * 1e3:.1f} us "
-                  f"({gbytes / ms_p * 1e3:.0f} GB/s)")
-            if not err <= rtol * scale:
-                raise AssertionError(
-                    f"{name} {dt}: kernel disagrees with the plain version "
-                    f"({err:.3e} > {rtol:g} x {scale:.3e})"
-                )
-            if flagship is None:
-                flagship = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p)
+    runs = [(name, model, _grown(model, x0, targets), dt, rtol,
+             _face_inputs)
+            for name, model, x0, targets in cases
+            for dt, rtol in ((torch.float64, F64_RTOL),
+                             (torch.float32, F32_RTOL))]
+    runs += [(f"{name}-solve-final", model, res.box, torch.float64, F64_RTOL,
+              lambda box, dt, res=res: _final_inputs(res))
+             for name, (model, res) in finals.items()]
+    for name, model, box, dt, rtol, inputs in runs:
+        mask, x = inputs(box, dt)
+        pack = sc.pack_stencil(model, box, dt, "cuda")
+        y_k = sc.box_stencil(pack, mask, x)
+        y_p = sc._box_stencil_plain(pack, mask, x)
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(y_k - y_p)))
+        # errors are relative to the terms of the sum: near a steady state
+        # (a solve's final w) y = A w nearly cancels, and max|y| is no scale
+        scale = max(float(torch.max(torch.abs(y_p))),
+                    float(torch.max(torch.abs(pack.diag * x))))
+        zeros = x.new_zeros(pack.halo)
+        row = _row(
+            err, _time_ms(sc.box_stencil, pack, mask, x),
+            _time_ms(sc._box_stencil_plain, pack, mask, x),
+            _sep_bound(pack, mask, ()),
+            _library(_sep_csr(pack, mask), torch.cat([zeros, x, zeros]),
+                     y_k, rtol, scale),
+            launches)
+        print(f"[kernels] {name} {str(dt)[6:]} vol={box.volume} active "
+              f"{float(mask.float().mean()):.4f} tile "
+              f"{1 << pack.log2_tile}; max_abs_err={err:.3e} (limit "
+              f"{rtol:g} x {scale:.3e}); {_us(row)}")
+        if not err <= rtol * scale:
+            raise AssertionError(
+                f"{name} {dt}: kernel disagrees with the plain version "
+                f"({err:.3e} > {rtol:g} x {scale:.3e})"
+            )
+        if flagship is None:
+            flagship = row
     print(f"[kernels] wall {time.perf_counter() - t0:.2f} s")
     return flagship
 
@@ -303,6 +468,7 @@ def _l1(a, b) -> float:
 
 
 def phase_toggle():
+    """Returns the solve's result."""
     from krylovfspssa_tpu_torch.models.library import toggle_file_model
 
     args = (toggle_file_model(), 1000.0, [[0, 0]], 1e-4, 1e-10)
@@ -312,6 +478,7 @@ def phase_toggle():
     # a t=5 window of the same scenario: a trace of all of t=1000 holds
     # ~10^6 events and takes minutes to reduce
     _profile("toggle t=5", (toggle_file_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
+    return res
 
 
 def _device_us(e) -> float:
@@ -383,7 +550,8 @@ def phase_goutsias():
 
 def _face_inputs(box, dt, seed=0):
     """A random mask (60% of cells) with every face of the box switched on
-    — where the kernels' validity tests decide — and random x."""
+    — where the kernels' validity tests decide — and random x inside it
+    (the separable kernel's contract supp(x) ⊆ mask)."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -395,10 +563,10 @@ def _face_inputs(box, dt, seed=0):
             m[tuple(sl)] = True
     mask = torch.as_tensor(m.reshape(-1), device="cuda")
     x = torch.as_tensor(rng.random(box.volume), dtype=dt, device="cuda")
-    return mask, x
+    return mask, torch.where(mask, x, 0)
 
 
-def _direct_case(name, model, box):
+def _direct_case(name, model, box, launches):
     """direct_stencil vs its plain version (and vs make_stencil_matvec, or
     box_stencil for a separable model) on one geometry in f64 and f32;
     returns the f64 row."""
@@ -433,35 +601,46 @@ def _direct_case(name, model, box):
         scale = float(torch.max(torch.abs(y_p)))
         err = float(torch.max(torch.abs(y_k - y_p)))
         err_r = float(torch.max(torch.abs(y_k - y_r)))
-        ms_k = _time_ms(kern, mask, x)
-        ms_p = _time_ms(plain, mask, x)
         ms_r = _time_ms(ref, mask, x)
         R = model.n_reactions
-        # compulsory traffic: x, y and the R fields' words and the mask
-        # byte per cell
-        gbytes = box.volume * ((R + 2) * x.element_size() + 1) / 1e9
+        # what the function needs on this data: the mask and y over the
+        # box, x at the active cells; the R fields there too for a Python
+        # callable (a kernel cannot evaluate it), not for expressions (a
+        # kernel can).  Per active cell the R-term diagonal and a validity
+        # test, product and add per reaction
+        active = int(mask.sum())
+        ops = active * (3 * R + 1)
+        nbytes = _nbytes(x, mask) + active * x.element_size()
+        bare = _bound(nbytes, ops, dt)
+        with_fields = _bound(nbytes + R * active * x.element_size(), ops,
+                             dt)
+        callable_ = model.custom_propensity is not None
+        this = _row(err, _time_ms(kern, mask, x), _time_ms(plain, mask, x),
+                    with_fields if callable_ else bare,
+                    _library(_direct_csr(pack, mask), x, y_k, rtol),
+                    launches)
+        row = row or this
         print(f"[direct] {name} {str(dt)[6:]} vol={box.volume} R={R} "
+              f"{'callable' if callable_ else 'expressions'} "
               f"max_abs_err={err:.3e} vs plain, {err_r:.3e} vs {ref_name} "
-              f"(limit {rtol:g} x {scale:.3e}) kernel {ms_k * 1e3:.1f} us "
-              f"({gbytes / ms_k * 1e3:.0f} GB/s)  plain {ms_p * 1e3:.1f} us"
-              f"  {ref_name} {ms_r * 1e3:.1f} us; fields built in "
-              f"{build_ms:.1f} ms")
+              f"(limit {rtol:g} x {scale:.3e}); {_us(this)}; bound without "
+              f"the fields {bare[0] * 1e3:.2f} us, with them "
+              f"{with_fields[0] * 1e3:.2f} us; {ref_name} "
+              f"{ms_r * 1e3:.1f} us; fields built in {build_ms:.1f} ms")
         if not (err <= rtol * scale and err_r <= rtol * scale):
             raise AssertionError(
                 f"{name} {dt}: direct_stencil disagrees ({err:.3e} vs "
                 f"plain, {err_r:.3e} vs {ref_name}; limit {rtol:g} x "
                 f"{scale:.3e})"
             )
-        if row is None:
-            row = dict(max_abs_err=err, ms=ms_k, plain_ms=ms_p)
         del pack
     return row
 
 
-def phase_direct_kernels():
+def phase_direct_kernels(launches, ge5d, ge5d_box):
     """direct_stencil on the card at the 2^22-cell Goutsias box (forced
-    through the direct form) and a 512x512 toggle_programmatic box; returns
-    the Goutsias f64 row."""
+    through the direct form), a 512x512 toggle_programmatic box and the box
+    the ge5d solve reached; returns the Goutsias f64 row."""
     from krylovfspssa_tpu_torch.models.library import (
         goutsias_model,
         toggle_programmatic_model,
@@ -470,10 +649,12 @@ def phase_direct_kernels():
     t0 = time.perf_counter()
     flagship = _direct_case(
         "goutsias-2^22", goutsias_model(),
-        _grown(goutsias_model(), [[2, 6, 0, 2, 0, 0]], [64, 64, 16, 4, 4, 4]))
+        _grown(goutsias_model(), [[2, 6, 0, 2, 0, 0]], [64, 64, 16, 4, 4, 4]),
+        launches)
     _direct_case(
         "toggle_programmatic-512x512", toggle_programmatic_model(),
-        _grown(toggle_programmatic_model(), [[0, 0]], [512, 512]))
+        _grown(toggle_programmatic_model(), [[0, 0]], [512, 512]), launches)
+    _direct_case("ge5d-solve-box", ge5d, ge5d_box, launches)
     print(f"[direct] wall {time.perf_counter() - t0:.2f} s")
     return flagship
 
@@ -536,15 +717,16 @@ def phase_ge5d():
     return lib, results[0].box
 
 
-def phase_halo(solve_box):
+def phase_halo(solve_box, launches):
     """halo_stencil on the card at two geometries: the 2^22-cell Goutsias
-    box and ``solve_box``, the box the Goutsias solve of phase 3 ended in
+    box and ``solve_box``, the box the Goutsias solve of phase 2 ended in
     (the box [sharded] runs), each cut into P = 1, 2 and 4 row shards on
     one card, each shard's halos cut from the global masked x (every face
     of the box active).  Kernel vs plain version per shard; the
-    concatenated shards vs box_stencil on the whole vector; P=1 times the
-    kernel on the whole box (zero halos) beside box_stencil.  Returns the
-    2^22 P=2 float64 row (worst shard error, median shard times)."""
+    concatenated shards vs box_stencil on the whole vector, bit for bit;
+    P=1 times the kernel on the whole box (zero halos) beside box_stencil.
+    Returns the 2^22 P=2 float64 row (worst shard error, median shard
+    times)."""
     import torch
 
     from krylovfspssa_tpu_torch.models.library import goutsias_model
@@ -557,16 +739,16 @@ def phase_halo(solve_box):
                       ("goutsias-solve-box", solve_box)):
         for dt, rtol in ((torch.float64, F64_RTOL),
                          (torch.float32, F32_RTOL)):
-            rows = _halo_case(name, model, box, dt, rtol)
+            rows = _halo_case(name, model, box, dt, rtol, launches)
             if flagship is None:
                 flagship = rows[2]
     print(f"[halo] wall {time.perf_counter() - t0:.2f} s")
     return flagship
 
 
-def _halo_case(name, model, box, dt, rtol):
+def _halo_case(name, model, box, dt, rtol, launches):
     """halo_stencil on one geometry and dtype for P = 1, 2, 4; returns
-    {P: row}."""
+    {P: row} (worst shard error, median shard times)."""
     import torch
 
     from krylovfspssa_tpu_torch.ops import stencil_cuda as sc
@@ -574,7 +756,6 @@ def _halo_case(name, model, box, dt, rtol):
 
     H = halo_width(box)
     mask, x = _face_inputs(box, dt)
-    xm = torch.where(mask, x, 0)
     bpack = sc.pack_stencil(model, box, dt, "cuda")
     whole = sc.box_stencil(bpack, mask, x)
     ms_box = _time_ms(sc.box_stencil, bpack, mask, x)
@@ -582,35 +763,46 @@ def _halo_case(name, model, box, dt, rtol):
     out = {}
     for n_ranks in (1, 2, 4):
         L = box.volume // n_ranks
-        shards, errs, ms_k, ms_p = [], [], [], []
+        shards, rows = [], []
         for r in range(n_ranks):
             z0 = r * L
             pack = sc.pack_halo_stencil(model, box, dt, "cuda", z0, L)
-            args = (pack, mask[z0:z0 + L], x[z0:z0 + L],
-                    *halo_from_global(xm, z0, L, H))
+            halos = halo_from_global(x, z0, L, H)
+            args = (pack, mask[z0:z0 + L], x[z0:z0 + L], *halos)
             y_k = sc.halo_stencil(*args)
             y_p = sc._halo_stencil_plain(*args)
             torch.cuda.synchronize()
-            errs.append(float(torch.max(torch.abs(y_k - y_p))))
-            ms_k.append(_time_ms(sc.halo_stencil, *args))
-            ms_p.append(_time_ms(sc._halo_stencil_plain, *args))
+            rows.append(_row(
+                float(torch.max(torch.abs(y_k - y_p))),
+                _time_ms(sc.halo_stencil, *args),
+                _time_ms(sc._halo_stencil_plain, *args),
+                _sep_bound(pack, args[1], halos),
+                _library(_sep_csr(pack, args[1]),
+                         torch.cat([halos[0], args[2], halos[1]]), y_k, rtol),
+                launches))
             shards.append(y_k)
-        err_box = float(torch.max(torch.abs(torch.cat(shards) - whole)))
+        bitwise = torch.equal(torch.cat(shards), whole)
+        row = dict(rows[0], **{key: statistics.median(r[key] for r in rows)
+                               for key in ("ms", "plain_ms", "bound_ms",
+                                           "library_ms")})
+        row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        per_shard = {key: " ".join("%.2f" % (r[key] * 1e3) for r in rows)
+                     for key in ("ms", "plain_ms", "library_ms")}
         print(f"[halo] {name} {tuple(box.shape)} {str(dt)[6:]} P={n_ranks} "
-              f"L={L} H={H} max_abs_err={max(errs):.3e} vs plain, "
-              f"{err_box:.3e} concatenated vs box_stencil (limit {rtol:g} x "
-              f"{scale:.3e}); per shard kernel "
-              f"{' '.join(f'{m * 1e3:.1f}' for m in ms_k)} us, plain "
-              f"{' '.join(f'{m * 1e3:.1f}' for m in ms_p)} us; box_stencil "
-              f"whole {ms_box * 1e3:.1f} us")
-        if not (max(errs) <= rtol * scale and err_box <= rtol * scale):
+              f"L={L} H={H} tile {1 << bpack.log2_tile}: max_abs_err="
+              f"{row['max_abs_err']:.3e} vs plain (limit {rtol:g} x "
+              f"{scale:.3e}), concatenated shards equal box_stencil bit for "
+              f"bit: {bitwise}; per shard kernel {per_shard['ms']} us, plain "
+              f"{per_shard['plain_ms']} us, CSR library "
+              f"{per_shard['library_ms']} us; median {_us(row)}; "
+              f"box_stencil whole {ms_box * 1e3:.2f} us (median shard / "
+              f"box_stencil {row['ms'] / ms_box:.3f})")
+        if not (row["max_abs_err"] <= rtol * scale and bitwise):
             raise AssertionError(
                 f"halo_stencil disagrees on {name} at P={n_ranks} {dt}: "
-                f"{max(errs):.3e} vs plain, {err_box:.3e} vs box_stencil "
-                f"(limit {rtol:g} x {scale:.3e})")
-        out[n_ranks] = dict(max_abs_err=max(errs),
-                            ms=statistics.median(ms_k),
-                            plain_ms=statistics.median(ms_p))
+                f"{row['max_abs_err']:.3e} vs plain (limit {rtol:g} x "
+                f"{scale:.3e}); shards equal box_stencil: {bitwise}")
+        out[n_ranks] = row
     return out
 
 
@@ -812,6 +1004,11 @@ def main(argv=None) -> int:
 
     import torch
 
+    from krylovfspssa_tpu_torch.models.library import (
+        goutsias_model,
+        toggle_file_model,
+    )
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sharded-only", action="store_true",
                     help="run only the one-rank Goutsias solve and "
@@ -826,21 +1023,17 @@ def main(argv=None) -> int:
     if args.sharded_only:
         return sharded_only(smi)
     t_start = time.perf_counter()
-    flagship = phase_kernels()
     phase_small_solve()
 
     # path 1, separable models: every launch is a solve's box_stencil matvec
     def separable():
-        phase_toggle()
-        return phase_goutsias()
+        return phase_toggle(), phase_goutsias()
 
-    sep, goutsias_one = _path_launches("separable path", separable,
-                                       ["box_stencil"])
+    sep, (toggle_one, goutsias_one) = _path_launches(
+        "separable path", separable, ["box_stencil"])
     if sep["direct_stencil"] or sep["halo_stencil"]:
         raise AssertionError(f"separable models launched another kernel: "
                              f"{sep}")
-
-    direct_flagship = phase_direct_kernels()
 
     # path 2, custom propensities: direct_stencil (and box_stencil for the
     # .input ge5d that the library's ge5d is held against)
@@ -850,43 +1043,40 @@ def main(argv=None) -> int:
 
     cus, (ge5d, ge5d_box) = _path_launches(
         "custom path", custom, ["direct_stencil", "box_stencil"])
-    _direct_case("ge5d-solve-box", ge5d, ge5d_box)
-
-    halo_flagship = phase_halo(goutsias_one.box)
     # path 3, the row-sharded solve: halo_stencil in every rank
     shl = phase_sharded(goutsias_one)
 
+    launches = {k: sep[k] + cus[k] + shl[k] for k in sep}
+    print(f"[paths] launches of the three solve paths: {launches}")
+    box = phase_kernels(launches["box_stencil"], {
+        "toggle": (toggle_file_model(), toggle_one),
+        "goutsias": (goutsias_model(), goutsias_one)})
+    direct = phase_direct_kernels(launches["direct_stencil"], ge5d, ge5d_box)
+    halo = phase_halo(goutsias_one.box, launches["halo_stencil"])
+
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
+    sep_source = "krylovfspssa_tpu_torch/csrc/sep_stencil.cuh"
+    print(json.dumps({"kernels": [dict({
         "name": "box_stencil",
         "route": "cuda",
-        "source": "krylovfspssa_tpu_torch/csrc/box_stencil.cu",
+        "source": sep_source,
         "replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:1149",
-        "launches": sep["box_stencil"] + cus["box_stencil"],
-        "max_abs_err": flagship["max_abs_err"],
-        "ms": flagship["ms"],
-        "plain_ms": flagship["plain_ms"],
-    }, {
+        "also_replaces": ["krylovfspssa_tpu/ops/pallas_stencil.py:809",
+                          "krylovfspssa_tpu/ops/pallas_stencil.py:486",
+                          "krylovfspssa_tpu/ops/pallas_stencil.py:228"],
+    }, **box), dict({
         "name": "direct_stencil",
         "route": "cuda",
         "source": "krylovfspssa_tpu_torch/csrc/direct_stencil.cu",
         "replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:2153",
-        "also_replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:66",
-        "launches": cus["direct_stencil"],
-        "max_abs_err": direct_flagship["max_abs_err"],
-        "ms": direct_flagship["ms"],
-        "plain_ms": direct_flagship["plain_ms"],
-    }, {
+        "also_replaces": ["krylovfspssa_tpu/ops/pallas_stencil.py:66"],
+    }, **direct), dict({
         "name": "halo_stencil",
         "route": "cuda",
-        "source": "krylovfspssa_tpu_torch/csrc/halo_stencil.cu",
+        "source": sep_source,
         "replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:1828",
-        "also_replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:1496",
-        "launches": shl["halo_stencil"],
-        "max_abs_err": halo_flagship["max_abs_err"],
-        "ms": halo_flagship["ms"],
-        "plain_ms": halo_flagship["plain_ms"],
-    }]}))
+        "also_replaces": ["krylovfspssa_tpu/ops/pallas_stencil.py:1496"],
+    }, **halo)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,28 +1,32 @@
-"""The Hopper stencil kernels ``box_stencil`` and ``direct_stencil`` and
-their PyTorch bindings.
+"""The Hopper stencil kernels and their PyTorch bindings.
 
-``csrc/box_stencil.cu`` computes the separable destination-form CME
-stencil SpMV (the math of ``ops/stencil.py:make_stencil_matvec``) by hand
-in CUDA C++ for ``sm_90a``, in float64 and float32.  It replaces the four
-TPU tilings of that function in ``krylovfspssa_tpu/ops/pallas_stencil.py``
-(``make_pallas_stencil_matvec_v6``/``_v5``/``_v4``/``_v3``, ROADMAP.md
-Queue B rows B1-B4).
+``csrc/sep_stencil.cuh`` is one kernel body, by hand in CUDA C++ for
+``sm_90a`` in float64 and float32, for the separable destination-form CME
+stencil SpMV (the math of ``ops/stencil.py:make_stencil_matvec``).  Two
+wrappers launch it:
+
+* ``box_stencil``, on the whole box.  It replaces the four TPU tilings of
+  that function in ``krylovfspssa_tpu/ops/pallas_stencil.py``
+  (``make_pallas_stencil_matvec_v6``/``_v5``/``_v4``/``_v3``, ROADMAP.md
+  Queue B rows B1-B4);
+* ``halo_stencil``, on one rank's rows of a row-sharded box, reading the
+  cells across the shard boundary from the two halos the ranks exchange
+  (ops/halo.py).  It replaces ``make_pallas_local_matvec_v6`` and
+  ``make_pallas_local_matvec_v5``, Queue B rows B7 and B8.
+
+Both take the TPU kernels' contract ``supp(x) ⊆ mask``: the kernel reads
+its sources without the mask.  Their plain versions mask x, and agree with
+the kernel on every input that meets the contract.
 
 ``csrc/direct_stencil.cu`` computes the direct-form stencil for every
 model that ``factorize_model`` refuses (coupled expressions, custom
 propensity callables) from per-geometry propensity fields.  It replaces
 ``make_pallas_stencil_matvec_v2`` and ``make_pallas_stencil_matvec`` (v1),
-Queue B rows B5 and B6.
-
-``csrc/halo_stencil.cu`` computes ``box_stencil``'s function on one rank's
-rows of a row-sharded box, reading the cells across the shard boundary
-from the two halos the ranks exchange (ops/halo.py).  It replaces
-``make_pallas_local_matvec_v6`` and ``make_pallas_local_matvec_v5``, Queue
-B rows B7 and B8.  Each source header says what bounds its kernel.
+Queue B rows B5 and B6.  Each source header says what bounds its kernel.
 
 The kernels are compiled on first use with ``nvcc`` into
-``build/krylovfspssa_tpu_torch/libkfs_kernels.so`` (rebuilt when the
-sources change) and bound through ctypes.  Each wrapper takes its plain
+``build/krylovfspssa_tpu_torch/libkfs_kernels.so`` (rebuilt when a source or
+header changes) and bound through ctypes.  Each wrapper takes its plain
 PyTorch version only for tensors on the CPU; for a CUDA tensor it launches
 its kernel or raises.
 """
@@ -60,6 +64,10 @@ _BUILD = Path(__file__).resolve().parents[2] / "build" / "krylovfspssa_tpu_torch
 _LIB_NAME = "libkfs_kernels.so"
 _lib = None
 
+#: log2 of the row-factor table's tile (cells), at most: species whose
+#: shift is at least this are constant over a tile and folded into the table
+_TILE_LOG2 = 10
+
 
 class BuildInfo(NamedTuple):
     path: Path
@@ -80,9 +88,13 @@ def _nvcc() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile ``csrc/*.cu`` for sm_90a unless the library is up to date."""
+    """Compile ``csrc/*.cu`` (which include ``csrc/*.cuh``) for sm_90a
+    unless the library is up to date with every source and header."""
     sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha1(b"".join(p.read_bytes() for p in sources)).hexdigest()
+    digest = hashlib.sha1()
+    for p in sorted(sources + list(_CSRC.glob("*.cuh"))):
+        digest.update(p.name.encode() + b"\0" + p.read_bytes())
+    digest = digest.hexdigest()
     lib = _BUILD / _LIB_NAME
     stamp = _BUILD / (_LIB_NAME + ".sha1")
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
@@ -92,7 +104,7 @@ def build() -> BuildInfo:
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), *map(str, sources),
+        "-I", str(_CSRC), "-o", str(tmp), *map(str, sources),
     ]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -110,21 +122,15 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build().path))
-        for name in ("kfs_box_stencil_f64", "kfs_box_stencil_f32"):
+        for name in ("kfs_sep_stencil_f64", "kfs_sep_stencil_f32"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
         for name in ("kfs_direct_stencil_f64", "kfs_direct_stencil_f32"):
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p
-            ]
-            fn.restype = ctypes.c_int
-        for name in ("kfs_halo_stencil_f64", "kfs_halo_stencil_f32"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
@@ -137,98 +143,6 @@ def _checked_volume(box: BoxSpace) -> int:
     if box.volume >= 1 << 31:
         raise ValueError(f"box volume {box.volume} needs 64-bit indices")
     return box.volume
-
-
-@dataclasses.dataclass(frozen=True)
-class StencilPack:
-    """The kernel's per-geometry operands, on the solve's device."""
-
-    #: concatenated shifted factor tables u_{k,s} of every reaction
-    tables: torch.Tensor
-    #: const_k per reaction
-    consts: torch.Tensor
-    #: int32 [off[R] | start[R+1] | (shift, ext-1, table offset) per factor]
-    meta: torch.Tensor
-    #: total outflow rate D per cell (built in float64, cast to dtype)
-    diag: torch.Tensor
-    volume: int
-    n_reactions: int
-    n_factors: int
-
-    @property
-    def dtype(self):
-        return self.tables.dtype
-
-
-def _separable_tables(model: Model, box: BoxSpace):
-    tables = _factored_reaction_tables(model, box)
-    if tables is None:
-        raise ValueError(
-            f"model {model.name!r} is not separable; its operands are "
-            "pack_direct_stencil's (kernel direct_stencil)"
-        )
-    return tables
-
-
-def _factor_operands(tables, box: BoxSpace, dtype, device) -> dict:
-    """The shifted factor tables, consts and int32 meta of the separable
-    kernels (``box_stencil``, ``halo_stencil``)."""
-    shifts = box.shift_of_species
-    bits = box.bits_of_species
-    starts, facs, chunks, pos = [0], [], [], 0
-    for _, u_tabs, _ in tables:
-        for s, tab in u_tabs.items():
-            facs += [int(shifts[s]), (1 << int(bits[s])) - 1, pos]
-            chunks.append(tab)
-            pos += len(tab)
-        starts.append(len(facs) // 3)
-    meta = np.array([int(o) for o in box.offsets] + starts + facs, np.int32)
-    return dict(
-        tables=torch.as_tensor(np.concatenate(chunks), dtype=dtype,
-                               device=device),
-        consts=torch.tensor([c for c, _, _ in tables], dtype=dtype,
-                            device=device),
-        meta=torch.as_tensor(meta, device=device),
-        n_reactions=len(tables),
-        n_factors=len(facs) // 3,
-    )
-
-
-def pack_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
-                 device="cuda") -> StencilPack:
-    """Build the kernel operands for one box geometry (separable models)."""
-    tables = _separable_tables(model, box)
-    return StencilPack(
-        **_factor_operands(tables, box, dtype, device),
-        diag=_diag_field(tables, box, torch.float64, device).to(dtype),
-        volume=_checked_volume(box),
-    )
-
-
-def _factor_products(meta, tables, consts, z, k, R):
-    """u_k(z) = const_k * prod_s u_{k,s}[c_s(z)], in the kernels' order."""
-    start, fac = meta[R:2 * R + 1], meta[2 * R + 1:]
-    u = consts[k].expand(z.shape[0])
-    for f in range(start[k], start[k + 1]):
-        shift, emask, toff = fac[3 * f:3 * f + 3]
-        u = u * tables[toff + ((z >> shift) & emask)]
-    return u
-
-
-def _box_stencil_plain(pack: StencilPack, mask: torch.Tensor,
-                       x: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, from the same operands:
-    :func:`_halo_stencil_plain` on the whole box with zero halos (the
-    shifted tables are zero wherever the source leaves the box, so the
-    kernel's wrap mod vol reads nothing that counts)."""
-    R = pack.n_reactions
-    halo = max(abs(o) for o in pack.meta[:R].tolist())
-    whole = HaloPack(tables=pack.tables, consts=pack.consts, meta=pack.meta,
-                     diag=pack.diag, volume=pack.volume, z0=0,
-                     rows=pack.volume, halo=halo, n_reactions=R,
-                     n_factors=pack.n_factors)
-    zeros = x.new_zeros(halo)
-    return _halo_stencil_plain(whole, mask, x, zeros, zeros)
 
 
 def _check_launch_args(name, vol, operand, mask, x):
@@ -267,32 +181,272 @@ def _launch(name, fn, device, args):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _check_dtype(name, dtype):
+    if dtype not in (torch.float64, torch.float32):
+        raise TypeError(f"{name} takes float64 or float32, not {dtype}")
+
+
+# --------------------------------------------------------------------- #
+#   box_stencil / halo_stencil: separable models (kernels B1-B4, B7-B8)  #
+# --------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilPack:
+    """The separable kernel's operands for the rows ``[z0, z0+rows)`` of
+    one box geometry (the whole box for ``box_stencil``), on the rank's
+    device."""
+
+    #: concatenated shifted factor tables u_{k,s} of every reaction
+    tables: torch.Tensor
+    #: const_k per reaction
+    consts: torch.Tensor
+    #: int32 [off[R] | start[R+1] | (shift, ext-1, table offset) per factor]
+    meta: torch.Tensor
+    #: each reaction's factors, (shift, ext - 1, table offset) each
+    factors: tuple
+    #: log2 of the row factors' tile T
+    log2_tile: int
+    #: the kernel's int32 meta: ``meta`` with only the factors of species
+    #: whose shift is below ``log2_tile`` (looked up per cell)
+    cell_meta: torch.Tensor
+    #: (n_tiles, R): const_k times the factors of reaction k constant over
+    #: each of the rows' tiles, validity baked in
+    row_factors: torch.Tensor
+    #: the rows' slice of D, the total outflow rate per cell (built in
+    #: float64 from global coordinates, cast to dtype)
+    diag: torch.Tensor
+    volume: int
+    z0: int
+    rows: int
+    #: H = max_k |off_k|, the length of each halo ``halo_stencil`` takes
+    halo: int
+    n_reactions: int
+
+    @property
+    def dtype(self):
+        return self.tables.dtype
+
+    @property
+    def n_tiles(self) -> int:
+        return self.row_factors.shape[0]
+
+    def cell_factors(self, k: int) -> tuple:
+        """Reaction k's factors that the kernel looks up per cell."""
+        return tuple(f for f in self.factors[k] if f[0] < self.log2_tile)
+
+    def tile_factors(self, k: int) -> tuple:
+        """Reaction k's factors folded into ``row_factors``."""
+        return tuple(f for f in self.factors[k] if f[0] >= self.log2_tile)
+
+
+def _separable_tables(model: Model, box: BoxSpace):
+    tables = _factored_reaction_tables(model, box)
+    if tables is None:
+        raise ValueError(
+            f"model {model.name!r} is not separable; its operands are "
+            "pack_direct_stencil's (kernel direct_stencil)"
+        )
+    return tables
+
+
+def _meta(offsets, facs, device) -> torch.Tensor:
+    """int32 [off[R] | start[R+1] | (shift, ext-1, table offset) per
+    factor] of the factor lists ``facs``."""
+    starts = np.cumsum([0] + [len(fk) for fk in facs]).tolist()
+    return torch.as_tensor(np.array(
+        list(offsets) + starts + [v for fk in facs for f in fk for v in f],
+        np.int32), device=device)
+
+
+def _factor_operands(tables, box: BoxSpace, dtype, device):
+    """The shifted factor tables, consts and int32 meta of the separable
+    kernel, and each reaction's (shift, ext - 1, table offset) list."""
+    shifts = box.shift_of_species
+    bits = box.bits_of_species
+    facs, chunks, pos = [], [], 0
+    for _, u_tabs, _ in tables:
+        fk = []
+        for s, tab in u_tabs.items():
+            fk.append((int(shifts[s]), (1 << int(bits[s])) - 1, pos))
+            chunks.append(tab)
+            pos += len(tab)
+        facs.append(tuple(fk))
+    return dict(
+        tables=torch.as_tensor(np.concatenate(chunks), dtype=dtype,
+                               device=device),
+        consts=torch.tensor([c for c, _, _ in tables], dtype=dtype,
+                            device=device),
+        meta=_meta([int(o) for o in box.offsets], facs, device),
+        n_reactions=len(tables),
+    ), tuple(facs)
+
+
+def _factor_products(facs, tables, u, z):
+    """u * prod_s u_{k,s}[c_s(z)] over the (shift, ext - 1, table offset)
+    list ``facs``, in the list's order."""
+    for shift, emask, toff in facs:
+        u = u * tables[toff + ((z >> shift) & emask)]
+    return u
+
+
+def _row_factors(facs, log2t: int, tables, consts, z0: int,
+                 rows: int) -> torch.Tensor:
+    """(n_tiles, R) table F of the tiles that meet ``[z0, z0+rows)``:
+    const_k times reaction k's factors of the species whose coordinate is
+    constant over a tile, at the tile's first cell."""
+    g0 = z0 >> log2t
+    n = ((z0 + rows - 1) >> log2t) - g0 + 1
+    zt = torch.arange(g0, g0 + n, dtype=torch.int64,
+                      device=tables.device) << log2t
+    return torch.stack([
+        _factor_products(tuple(f for f in fk if f[0] >= log2t), tables,
+                         consts[k].expand(n), zt)
+        for k, fk in enumerate(facs)
+    ], dim=1).contiguous()
+
+
+def pack_halo_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
+                      device="cuda", z0: int = 0,
+                      rows: int | None = None) -> StencilPack:
+    """Build the separable kernel's operands for the rows
+    ``[z0, z0+rows)`` of one box geometry (separable models; the whole box
+    by default).  Every shard of a box shares its tiles: they sit at global
+    multiples of T."""
+    from .halo import halo_width
+
+    tables = _separable_tables(model, box)
+    vol = _checked_volume(box)
+    rows = vol - z0 if rows is None else rows
+    if not (0 <= z0 and rows > 0 and z0 + rows <= vol):
+        raise ValueError(f"rows [{z0}, {z0 + rows}) outside a box of "
+                         f"{vol} cells")
+    ops, facs = _factor_operands(tables, box, dtype, device)
+    log2t = min(_TILE_LOG2, vol.bit_length() - 1)
+    return StencilPack(
+        **ops,
+        factors=facs,
+        log2_tile=log2t,
+        cell_meta=_meta([int(o) for o in box.offsets],
+                        [tuple(f for f in fk if f[0] < log2t) for fk in facs],
+                        device),
+        row_factors=_row_factors(facs, log2t, ops["tables"], ops["consts"],
+                                 z0, rows),
+        diag=_diag_field(tables, box, torch.float64, device,
+                         rows=(z0, rows)).to(dtype),
+        volume=vol, z0=z0, rows=rows, halo=halo_width(box),
+    )
+
+
+def pack_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
+                 device="cuda") -> StencilPack:
+    """Build ``box_stencil``'s operands for one box geometry (separable
+    models): :func:`pack_halo_stencil` on the whole box."""
+    return pack_halo_stencil(model, box, dtype, device)
+
+
+def _propensity(pack: StencilPack, k: int, z: torch.Tensor) -> torch.Tensor:
+    """const_k * prod_s u_{k,s}[c_s(z)] over every factor of reaction k, at
+    the global cells z: the plain version's rate, cell by cell."""
+    return _factor_products(pack.factors[k], pack.tables,
+                            pack.consts[k].expand(z.shape), z)
+
+
+def _rate(pack: StencilPack, k: int, z: torch.Tensor) -> torch.Tensor:
+    """u_k(z) = F[tile(z), k] * prod of reaction k's per-cell factors, at
+    the global cells z of the pack's rows: the kernel's rate, in its
+    order."""
+    t = (z >> pack.log2_tile) - (pack.z0 >> pack.log2_tile)
+    return _factor_products(pack.cell_factors(k), pack.tables,
+                            pack.row_factors[t, k], z)
+
+
+def _halo_stencil_plain(pack: StencilPack, mask: torch.Tensor,
+                        x: torch.Tensor, left: torch.Tensor,
+                        right: torch.Tensor) -> torch.Tensor:
+    """The stencil in plain PyTorch: every factor of every reaction per
+    cell (no tile table), sources from ``[left | mask*x | right]``.  It
+    masks x, so it holds without the kernel's contract."""
+    H, n = pack.halo, pack.rows
+    z = torch.arange(pack.z0, pack.z0 + n, dtype=torch.int64,
+                     device=x.device)
+    xm = torch.where(mask, x, 0)
+    xpad = torch.cat([left, xm, right])
+    y = -pack.diag * xm
+    for k, off in enumerate(pack.meta[:pack.n_reactions].tolist()):
+        # source of local cell i is local cell i - off_k: padded index
+        # H + i - off_k
+        src = H - off
+        y = y + _propensity(pack, k, z) * xpad[src:src + n]
+    return torch.where(mask, y, 0)
+
+
+def _box_stencil_plain(pack: StencilPack, mask: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """:func:`_halo_stencil_plain` on the whole box with zero halos (the
+    shifted tables are zero wherever the source leaves the box)."""
+    zeros = x.new_zeros(pack.halo)
+    return _halo_stencil_plain(pack, mask, x, zeros, zeros)
+
+
+def _launch_separable(name, pack: StencilPack, mask, x, left, right, hl):
+    lib = _library()
+    fn = (lib.kfs_sep_stencil_f64 if x.dtype == torch.float64
+          else lib.kfs_sep_stencil_f32)
+    y = torch.empty_like(x)
+    _launch(name, fn, x.device, (
+        x.data_ptr(), mask.data_ptr(), left, right, pack.diag.data_ptr(),
+        pack.tables.data_ptr(), pack.row_factors.data_ptr(),
+        pack.cell_meta.data_ptr(), y.data_ptr(), pack.rows, pack.z0, hl,
+        pack.n_reactions, pack.cell_meta.numel(), pack.tables.numel(),
+        pack.log2_tile,
+    ))
+    return y
+
+
 def box_stencil(pack: StencilPack, mask: torch.Tensor,
                 x: torch.Tensor) -> torch.Tensor:
-    """y = A x on the masked box.  CUDA tensors launch the kernel (on the
-    current stream, without synchronising); CPU tensors take the plain
-    version."""
+    """y = A x on the masked box.  The kernel takes ``supp(x) ⊆ mask``
+    (the solver keeps it; pass ``torch.where(mask, x, 0)`` otherwise).
+    CUDA tensors launch the kernel (on the current stream, without
+    synchronising); CPU tensors take the plain version."""
     global LAUNCHES
     if x.device.type == "cpu":
         return _box_stencil_plain(pack, mask, x)
+    if pack.rows != pack.volume:
+        raise ValueError("box_stencil: the operands hold rows "
+                         f"[{pack.z0}, {pack.z0 + pack.rows}) of the box; "
+                         "use halo_stencil")
     _check_launch_args("box_stencil", pack.volume, pack.tables, mask, x)
-    lib = _library()
-    fn = (lib.kfs_box_stencil_f64 if x.dtype == torch.float64
-          else lib.kfs_box_stencil_f32)
-    y = torch.empty_like(x)
-    _launch("box_stencil", fn, x.device, (
-        x.data_ptr(), mask.data_ptr(), pack.diag.data_ptr(),
-        pack.tables.data_ptr(), pack.consts.data_ptr(), pack.meta.data_ptr(),
-        y.data_ptr(), pack.volume, pack.n_reactions, pack.n_factors,
-        pack.tables.numel(),
-    ))
+    y = _launch_separable("box_stencil", pack, mask, x, None, None, 0)
     LAUNCHES += 1
     return y
 
 
-def _check_dtype(name, dtype):
-    if dtype not in (torch.float64, torch.float32):
-        raise TypeError(f"{name} takes float64 or float32, not {dtype}")
+def halo_stencil(pack: StencilPack, mask: torch.Tensor, x: torch.Tensor,
+                 left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """y = A x on one rank's rows.  ``x`` and ``mask`` are the rows,
+    ``left``/``right`` the masked x at the H cells before and after them
+    (zero outside the box).  The kernel takes ``supp(x) ⊆ mask``, as
+    :func:`box_stencil`.  CUDA tensors launch the kernel (on the current
+    stream, without synchronising); CPU tensors take the plain version."""
+    global HALO_LAUNCHES
+    for name, h in (("left", left), ("right", right)):
+        if h.shape != (pack.halo,) or h.dtype != x.dtype or \
+                h.device != x.device:
+            raise ValueError(
+                f"halo_stencil: {name} halo {tuple(h.shape)} {h.dtype} on "
+                f"{h.device}, expected ({pack.halo},) {x.dtype} on "
+                f"{x.device}")
+    if x.device.type == "cpu":
+        return _halo_stencil_plain(pack, mask, x, left, right)
+    _check_launch_args("halo_stencil", pack.rows, pack.tables, mask, x)
+    if not (left.is_contiguous() and right.is_contiguous()):
+        raise ValueError("halo_stencil: halos must be contiguous")
+    y = _launch_separable("halo_stencil", pack, mask, x, left.data_ptr(),
+                          right.data_ptr(), pack.halo)
+    HALO_LAUNCHES += 1
+    return y
 
 
 def make_box_stencil_matvec(model: Model, box: BoxSpace, dtype=torch.float64,
@@ -405,107 +559,3 @@ def make_direct_stencil_matvec(model: Model, box: BoxSpace,
         return direct_stencil(pack, mask, x)
 
     return matvec
-
-
-# --------------------------------------------------------------------- #
-#        halo_stencil: one rank's rows of a sharded box (B7 / B8)       #
-# --------------------------------------------------------------------- #
-
-
-@dataclasses.dataclass(frozen=True)
-class HaloPack:
-    """``halo_stencil``'s operands for one rank's rows ``[z0, z0+rows)`` of
-    one box geometry, on the rank's device."""
-
-    #: shifted factor tables, consts and meta: ``box_stencil``'s
-    tables: torch.Tensor
-    consts: torch.Tensor
-    meta: torch.Tensor
-    #: the rows' slice of D (built in float64 from global coordinates, cast
-    #: to dtype): the same numbers as ``pack_stencil``'s diag there
-    diag: torch.Tensor
-    volume: int
-    z0: int
-    rows: int
-    #: H = max_k |off_k|, the length of each halo
-    halo: int
-    n_reactions: int
-    n_factors: int
-
-    @property
-    def dtype(self):
-        return self.tables.dtype
-
-
-def pack_halo_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
-                      device="cuda", z0: int = 0,
-                      rows: int | None = None) -> HaloPack:
-    """Build ``halo_stencil``'s operands for the rows ``[z0, z0+rows)`` of
-    one box geometry (separable models; the whole box by default)."""
-    from .halo import halo_width
-
-    tables = _separable_tables(model, box)
-    vol = _checked_volume(box)
-    rows = vol - z0 if rows is None else rows
-    if not (0 <= z0 and rows > 0 and z0 + rows <= vol):
-        raise ValueError(f"rows [{z0}, {z0 + rows}) outside a box of "
-                         f"{vol} cells")
-    return HaloPack(
-        **_factor_operands(tables, box, dtype, device),
-        diag=_diag_field(tables, box, torch.float64, device,
-                         rows=(z0, rows)).to(dtype),
-        volume=vol, z0=z0, rows=rows, halo=halo_width(box),
-    )
-
-
-def _halo_stencil_plain(pack: HaloPack, mask: torch.Tensor, x: torch.Tensor,
-                        left: torch.Tensor,
-                        right: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, from the same operands."""
-    R, H, n = pack.n_reactions, pack.halo, pack.rows
-    meta = pack.meta.tolist()
-    z = torch.arange(pack.z0, pack.z0 + n, dtype=torch.int64,
-                     device=x.device)
-    xm = torch.where(mask, x, 0)
-    xpad = torch.cat([left, xm, right])
-    y = -pack.diag * xm
-    for k in range(R):
-        u = _factor_products(meta, pack.tables, pack.consts, z, k, R)
-        # source of local cell i is local cell i - off_k: padded index
-        # H + i - off_k
-        src = H - meta[k]
-        y = y + u * xpad[src:src + n]
-    return torch.where(mask, y, 0)
-
-
-def halo_stencil(pack: HaloPack, mask: torch.Tensor, x: torch.Tensor,
-                 left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
-    """y = A x on one rank's rows.  ``x`` and ``mask`` are the rows,
-    ``left``/``right`` the masked x at the H cells before and after them
-    (zero outside the box).  CUDA tensors launch the kernel (on the current
-    stream, without synchronising); CPU tensors take the plain version."""
-    global HALO_LAUNCHES
-    for name, h in (("left", left), ("right", right)):
-        if h.shape != (pack.halo,) or h.dtype != x.dtype or \
-                h.device != x.device:
-            raise ValueError(
-                f"halo_stencil: {name} halo {tuple(h.shape)} {h.dtype} on "
-                f"{h.device}, expected ({pack.halo},) {x.dtype} on "
-                f"{x.device}")
-    if x.device.type == "cpu":
-        return _halo_stencil_plain(pack, mask, x, left, right)
-    _check_launch_args("halo_stencil", pack.rows, pack.tables, mask, x)
-    if not (left.is_contiguous() and right.is_contiguous()):
-        raise ValueError("halo_stencil: halos must be contiguous")
-    lib = _library()
-    fn = (lib.kfs_halo_stencil_f64 if x.dtype == torch.float64
-          else lib.kfs_halo_stencil_f32)
-    y = torch.empty_like(x)
-    _launch("halo_stencil", fn, x.device, (
-        x.data_ptr(), mask.data_ptr(), left.data_ptr(), right.data_ptr(),
-        pack.diag.data_ptr(), pack.tables.data_ptr(), pack.consts.data_ptr(),
-        pack.meta.data_ptr(), y.data_ptr(), pack.rows, pack.z0, pack.halo,
-        pack.n_reactions, pack.n_factors, pack.tables.numel(),
-    ))
-    HALO_LAUNCHES += 1
-    return y

@@ -2,7 +2,11 @@
 half of the JAX package's ``__graft_entry__.dryrun_multichip``; its table
 half waits for the table backend, ROADMAP.md slice 6).
 
+    python -m krylovfspssa_tpu_torch.parallel.dryrun 4              # 4 cards
     python -m krylovfspssa_tpu_torch.parallel.dryrun 4 --device cpu
+
+It runs on the card, one per rank, unless the CPU is named: without CUDA
+(or with fewer cards than ranks) it fails instead of moving to the CPU.
 """
 
 from __future__ import annotations
@@ -23,15 +27,20 @@ def _dryrun_rank(mesh):
     return res if mesh.rank == 0 else None
 
 
-def dryrun_multichip(n_devices: int, device: str = "cpu"):
+def dryrun_multichip(n_devices: int, device: str = "cuda"):
     """Run the full sharded box solve (bursting gene, t=5, fsp_tol 1e-4,
     krylov_tol 1e-8: box growth, drops and dilation rounds) on
-    ``n_devices`` ranks of this host — gloo ranks on the CPU, or one card
-    each with NCCL for ``device="cuda"`` — and check that it reached t_out
-    with its mass.  Returns rank 0's result; raises on a failed check."""
+    ``n_devices`` ranks of this host — one card each with NCCL, or gloo
+    ranks for ``device="cpu"`` — and check that it reached t_out with its
+    mass.  Returns rank 0's result; raises on a failed check, and where
+    ``device="cuda"`` finds fewer than ``n_devices`` cards."""
     from .multihost import spawn
 
     if torch.device(device).type == "cuda":
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if cards < n_devices:
+            raise RuntimeError(f"dryrun_multichip on cuda needs {n_devices} "
+                               f"cards, {cards} visible")
         devices, backend = [f"cuda:{r}" for r in range(n_devices)], "nccl"
     else:
         devices, backend = [device] * n_devices, "gloo"
@@ -53,7 +62,7 @@ def dryrun_multichip(n_devices: int, device: str = "cpu"):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("ranks", type=int)
-    p.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    p.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     args = p.parse_args(argv)
     dryrun_multichip(args.ranks, args.device)
     return 0

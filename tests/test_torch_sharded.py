@@ -431,6 +431,22 @@ def test_cli_multihost_mesh_on_requested_device(monkeypatch, device):
 def test_dryrun_multichip(capsys):
     from krylovfspssa_tpu_torch.parallel.dryrun import dryrun_multichip
 
-    res = dryrun_multichip(2)
+    res = dryrun_multichip(2, device="cpu")
     assert res.stats.t_final >= 5.0 and res.wsum >= 1.0 - 1e-4
     assert "dryrun_multichip ok" in capsys.readouterr().out
+
+
+def test_dryrun_multichip_defaults_to_cuda():
+    """The dry run's entry points run on the card unless the CPU is named:
+    with fewer cards than ranks they fail instead of moving to the CPU."""
+    import inspect
+
+    from krylovfspssa_tpu_torch.parallel import dryrun
+
+    assert inspect.signature(dryrun.dryrun_multichip).parameters[
+        "device"].default == "cuda"
+    n = (torch.cuda.device_count() if torch.cuda.is_available() else 0) + 1
+    with pytest.raises(RuntimeError, match="cards"):
+        dryrun.dryrun_multichip(n)
+    with pytest.raises(RuntimeError, match="cards"):
+        dryrun.main([str(n)])

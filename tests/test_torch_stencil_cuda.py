@@ -22,6 +22,8 @@ GEOMETRIES = [
     ("goutsias", [[2, 6, 0, 2, 0, 0]], [16, 16, 8, 4, 4, 4]),
     ("repressilator", [[0, 0, 0]], [8, 16, 8]),
     ("bursting_gene", [[0, 0]], [4, 64]),
+    # smaller than one warp
+    ("toggle", [[0, 0]], [2, 4]),
 ]
 
 
@@ -33,20 +35,30 @@ def cuda_device():
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("shift", [0, 1, 3])
 @pytest.mark.parametrize("dt,rtol", [(torch.float64, 1e-12),
                                      (torch.float32, 1e-5)])
 @pytest.mark.parametrize("name,x0,targets", GEOMETRIES)
-def test_cuda_kernel_matches_plain(cuda_device, name, x0, targets, dt, rtol):
+def test_cuda_kernel_matches_plain(cuda_device, name, x0, targets, dt, rtol,
+                                   shift):
     """select_stencil_matvec on CUDA launches the kernel exactly once per
-    matvec, and agrees with the plain version to rtol x max|y|."""
+    matvec, and agrees with the plain version to rtol x max|y|, with x and
+    mask ``shift`` elements into their buffers (16-byte lines cut at other
+    places).  x meets the kernel's contract supp(x) in mask."""
     model = library.get_model(name)
-    box = BoxSpace.for_model(model.stoichiometry, x0)
+    box = BoxSpace.for_model(model.stoichiometry, x0, 1)
     for s, tgt in enumerate(targets):
         while box.extents[s] < tgt:
             box = box.grow(s)
     rng = np.random.default_rng(0)
-    m = torch.as_tensor(rng.random(box.volume) < 0.6, device=cuda_device)
-    x = torch.as_tensor(rng.random(box.volume), dtype=dt, device=cuda_device)
+    vol = box.volume
+    m = torch.zeros(vol + shift, dtype=torch.bool, device=cuda_device)
+    m[shift:] = torch.as_tensor(rng.random(vol) < 0.6, device=cuda_device)
+    x = torch.zeros(vol + shift, dtype=dt, device=cuda_device)
+    x[shift:] = torch.as_tensor(rng.random(vol), dtype=dt,
+                                device=cuda_device)
+    m, x = m[shift:], x[shift:]
+    x[~m] = 0
     before = stencil_cuda.LAUNCHES
     got = stencil.select_stencil_matvec(
         model, box, SolverConfig(), dt, cuda_device)(m, x)
@@ -134,6 +146,7 @@ def test_cuda_direct_kernel_matches_box_stencil(cuda_device, dt, rtol):
         while box.extents[s] < tgt:
             box = box.grow(s)
     m, x = _face_inputs(box, dt, cuda_device, seed=1)
+    x = torch.where(m, x, 0)  # box_stencil's contract
     y_box = stencil_cuda.make_box_stencil_matvec(
         model, box, dt, cuda_device)(m, x)
     y_dir = stencil_cuda.make_direct_stencil_matvec(
