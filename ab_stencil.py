@@ -1,25 +1,40 @@
 #!/usr/bin/env python3
-"""A/B timing of the separable stencil kernel (``box_stencil``) of several
-checkouts of the PyTorch/CUDA port, on one NVIDIA GPU.
+"""A/B timing of the stencil kernels (``box_stencil``, ``direct_stencil``)
+of several checkouts of the PyTorch/CUDA port, on one NVIDIA GPU.
 
-    python3 ab_stencil.py DIR [DIR ...]
+    python3 ab_stencil.py [--kernel box|direct|both] DIR [DIR ...]
 
 Each DIR holds a ``krylovfspssa_tpu_torch`` package (a checkout, or a
 ``git archive`` of another commit unpacked into a directory that
 ``.gitignore`` lists, such as ``build/``).  The script builds every
 checkout's kernels at once (one nvcc each), then, with the first DIR, runs
-the Goutsias t=10 solve (fsp_tol 1e-6, krylov_tol 1e-8) and the toggle
-t=1000 solve (fsp_tol 1e-4, krylov_tol 1e-10) on the card and keeps the last
-input (mask, x) each solve gave ``box_stencil``: the kernel's inputs on
-those solve paths.  Then each DIR, in its own process, in the order
-A B .. B A, times ``box_stencil`` (20 back-to-back launches between two
-CUDA events behind ``torch.cuda._sleep``, median of 5) on
+solves on the card and keeps the last input (mask, x) each gave its kernel
+(the kernel's inputs on that solve path):
 
-  * the 2^22-cell Goutsias box and a 512x512 toggle box, 60% of the cells
-    active with every face of the box on, float64 and float32;
-  * the two solves' last inputs, float64;
+  * ``box_stencil``: the Goutsias t=10 solve (fsp_tol 1e-6, krylov_tol
+    1e-8) and the toggle t=1000 solve (fsp_tol 1e-4, krylov_tol 1e-10);
+  * ``direct_stencil``: the CUSTOMPROP toggle t=100 solve
+    (``toggle_programmatic``, fsp_tol 1e-4, krylov_tol 1e-10) and the ge5d
+    t=1 solve (library callable, fsp_tol 1e-4, krylov_tol 1e-8,
+    box_min_log2 2).
 
-and checks it against its own plain version.  It prints one line per case
+Then each DIR, in its own process, in the order A B .. B A, times each
+kernel (20 back-to-back launches between two CUDA events behind
+``torch.cuda._sleep``, median of 5) on
+
+  * ``box_stencil``: the 2^22-cell Goutsias box and a 512x512 toggle box;
+  * ``direct_stencil``: the box the ge5d solve ended in (2^23 cells), the
+    2^22-cell Goutsias box sent through the direct form and a 512x512
+    ``toggle_programmatic`` box;
+
+each with 60% of the cells active and every face of the box on, float64
+and float32, and on the solves' last inputs in float64.  Each case is
+checked against the checkout's own plain version; a direct case also
+times the checkout's operand build (host clock, synchronised; peak device
+memory above the inputs) and one CSR SpMV of the masked generator
+(``torch.sparse_csr_tensor @ x``, the library yardstick, built from the
+propensity fields).  y is hashed (with -0 taken as 0), so the lines show
+whether the checkouts compute the same bits.  It prints one line per case
 and checkout (microseconds per launch, each run) and writes them to
 ``chiprun_out/ab_stencil.json``.  Needs a CUDA device; imports nothing of
 JAX.
@@ -84,15 +99,26 @@ def _face_inputs(box, dt, seed=0):
     return mask, torch.where(mask, x, 0)
 
 
-def _solves():
-    from krylovfspssa_tpu_torch.models.library import (
-        goutsias_model,
-        toggle_file_model,
-    )
+#: kernel -> the solves whose last input it is timed on: (name, model
+#: factory, t, x0, fsp_tol, krylov_tol), default SolverConfig
+SOLVES = {
+    "box_stencil": (
+        ("goutsias", "goutsias_model", 10.0, [[2, 6, 0, 2, 0, 0]], 1e-6,
+         1e-8),
+        ("toggle", "toggle_file_model", 1000.0, [[0, 0]], 1e-4, 1e-10)),
+    "direct_stencil": (
+        ("customprop", "toggle_programmatic_model", 100.0, [[0, 0]], 1e-4,
+         1e-10),
+        ("ge5d", "ge5d_model", 1.0, [[0, 0, 0, 0, 0]], 1e-4, 1e-8)),
+}
+KERNELS = {"box": ["box_stencil"], "direct": ["direct_stencil"],
+           "both": ["box_stencil", "direct_stencil"]}
 
-    return (("goutsias", goutsias_model(), 10.0, [[2, 6, 0, 2, 0, 0]],
-             1e-6, 1e-8),
-            ("toggle", toggle_file_model(), 1000.0, [[0, 0]], 1e-4, 1e-10))
+
+def _model(factory):
+    from krylovfspssa_tpu_torch.models import library
+
+    return getattr(library, factory)()
 
 
 def mode_build(tree):
@@ -104,65 +130,120 @@ def mode_build(tree):
                     if "registers" in ln or "Compiling entry" in ln))
 
 
-def mode_capture(tree, out):
+def mode_capture(tree, out, kernels):
     sys.path.insert(0, tree)
     import torch
 
     from krylovfspssa_tpu_torch import BoxCmeSolver
     from krylovfspssa_tpu_torch.ops import stencil_cuda as sc
 
-    last = {}
-    kernel = sc.box_stencil
-
-    def keep_last(pack, mask, x):
-        last["mask"], last["x"] = mask.clone(), x.clone()
-        return kernel(pack, mask, x)
-
-    sc.box_stencil = keep_last
     saved = {}
-    for name, model, t, x0, fsp_tol, krylov_tol in _solves():
-        t0 = time.perf_counter()
-        res = BoxCmeSolver(model, device="cuda").solve(
-            t, x0, fsp_tol=fsp_tol, krylov_tol=krylov_tol)
-        torch.cuda.synchronize()
-        saved[name] = dict(axis=list(res.box.axis_of_species),
-                           log2=list(res.box.log2),
-                           mask=last["mask"].cpu(), x=last["x"].cpu())
-        print(f"[ab] {name} solve: box {res.box.shape} nmult "
-              f"{res.stats.nmult}, last input "
-              f"{float(last['mask'].float().mean()):.4f}"
-              f" of the box active, wall {time.perf_counter() - t0:.2f} s",
-              flush=True)
+    for kname in kernels.split(","):
+        last = {}
+        kernel = getattr(sc, kname)
+
+        def keep_last(pack, mask, x, kernel=kernel, last=last):
+            last["mask"], last["x"] = mask.clone(), x.clone()
+            return kernel(pack, mask, x)
+
+        setattr(sc, kname, keep_last)
+        for name, factory, t, x0, fsp_tol, krylov_tol in SOLVES[kname]:
+            t0 = time.perf_counter()
+            res = BoxCmeSolver(_model(factory), device="cuda").solve(
+                t, x0, fsp_tol=fsp_tol, krylov_tol=krylov_tol)
+            torch.cuda.synchronize()
+            saved[name] = dict(kernel=kname, factory=factory,
+                               axis=list(res.box.axis_of_species),
+                               log2=list(res.box.log2),
+                               mask=last["mask"].cpu(), x=last["x"].cpu())
+            print(f"[ab] {name} solve: box {res.box.shape} nmult "
+                  f"{res.stats.nmult}, last input "
+                  f"{float(last['mask'].float().mean()):.4f}"
+                  f" of the box active, wall {time.perf_counter() - t0:.2f} "
+                  "s", flush=True)
+        setattr(sc, kname, kernel)
     torch.save(saved, out)
 
 
-def mode_time(tree, inputs):
-    sys.path.insert(0, tree)
-    import numpy as np
+def _csr(rows, cols, vals, shape):
+    """A CSR matrix (int32 indices) from coordinate lists."""
     import torch
 
+    rows, cols, vals = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    order = torch.argsort(rows * shape[1] + cols)
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=vals.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=shape[0]), 0)
+    return torch.sparse_csr_tensor(crow.int(), cols.int(), vals, shape,
+                                   check_invariants=False)
+
+
+def _direct_csr(model, box, mask, dt):
+    """The masked direct-form generator as a CSR matrix, from the
+    propensity fields and the box validity (ops/stencil.py, the same in
+    every checkout)."""
+    import torch
+
+    from krylovfspssa_tpu_torch.ops.stencil import (
+        _dest_valid,
+        propensity_fields,
+    )
+
+    vol = box.volume
+    fields = propensity_fields(model, box, dt, "cuda")
+    i = torch.nonzero(mask).squeeze(1)
+    rows, cols, vals = [i], [i], [-sum(fields)[i]]
+    for k, off in enumerate(int(o) for o in box.offsets):
+        j = (i - off).clamp(0, vol - 1)
+        a = fields[k][j]
+        keep = _dest_valid(box, i, k) & mask[j] & (a != 0)
+        rows.append(i[keep])
+        cols.append(j[keep])
+        vals.append(a[keep])
+    del fields
+    return _csr(rows, cols, vals, (vol, vol))
+
+
+def _digest(y):
+    import hashlib
+
+    return hashlib.sha1((y + 0.0).cpu().numpy().tobytes()).hexdigest()[:12]
+
+
+def _box_of(d):
+    import numpy as np
+
     from krylovfspssa_tpu_torch.boxspace.box import BoxSpace
+
+    model = _model(d["factory"])
+    return model, BoxSpace(n_species=len(d["axis"]),
+                           axis_of_species=tuple(d["axis"]),
+                           log2=tuple(d["log2"]),
+                           stoichiometry=np.asarray(model.stoichiometry,
+                                                    np.int64))
+
+
+def _time_box(solves):
+    import torch
+
     from krylovfspssa_tpu_torch.ops import stencil_cuda as sc
 
-    solves = {name: model for name, model, *_ in _solves()}
     cases = []
-    for name, x0, targets in (
-            ("goutsias", [[2, 6, 0, 2, 0, 0]], [64, 64, 16, 4, 4, 4]),
-            ("toggle", [[0, 0]], [512, 512])):
-        box = _grown(solves[name], x0, targets)
+    for factory, x0, targets in (
+            ("goutsias_model", [[2, 6, 0, 2, 0, 0]], [64, 64, 16, 4, 4, 4]),
+            ("toggle_file_model", [[0, 0]], [512, 512])):
+        model = _model(factory)
+        box = _grown(model, x0, targets)
         for dt in (torch.float64, torch.float32):
-            cases.append((f"dense {name} {box.volume} cells {str(dt)[6:]}",
-                          solves[name], box, *_face_inputs(box, dt)))
-    for name, d in torch.load(inputs).items():
-        model = solves[name]
-        box = BoxSpace(n_species=len(d["axis"]),
-                       axis_of_species=tuple(d["axis"]),
-                       log2=tuple(d["log2"]),
-                       stoichiometry=np.asarray(model.stoichiometry,
-                                                np.int64))
-        cases.append((f"{name} solve's last input, {box.volume} cells "
-                      f"float64", model, box, d["mask"].cuda(),
-                      d["x"].cuda()))
+            cases.append((f"box_stencil dense {factory[:-6]} {box.volume} "
+                          f"cells {str(dt)[6:]}", model, box,
+                          *_face_inputs(box, dt)))
+    for name, d in solves.items():
+        if d["kernel"] == "box_stencil":
+            model, box = _box_of(d)
+            cases.append((f"box_stencil {name} solve's last input, "
+                          f"{box.volume} cells float64", model, box,
+                          d["mask"].cuda(), d["x"].cuda()))
     rows = {}
     for name, model, box, mask, x in cases:
         pack = sc.pack_stencil(model, box, x.dtype, "cuda")
@@ -172,20 +253,91 @@ def mode_time(tree, inputs):
         rows[name] = dict(
             us=1e3 * _time_ms(sc.box_stencil, pack, mask, x),
             rel_err=float((y - ref).abs().max() / ref.abs().max()),
-            active=float(mask.float().mean()))
+            active=float(mask.float().mean()), y=_digest(y))
+    return rows
+
+
+def _time_direct(solves):
+    import torch
+
+    from krylovfspssa_tpu_torch.ops import stencil_cuda as sc
+
+    ge5d = next(d for d in solves.values() if d["factory"] == "ge5d_model")
+    cases = []
+    for factory, box in (
+            ("ge5d_model", _box_of(ge5d)[1]),
+            ("goutsias_model", _grown(_model("goutsias_model"),
+                                      [[2, 6, 0, 2, 0, 0]],
+                                      [64, 64, 16, 4, 4, 4])),
+            ("toggle_programmatic_model",
+             _grown(_model("toggle_programmatic_model"), [[0, 0]],
+                    [512, 512]))):
+        for dt in (torch.float64, torch.float32):
+            cases.append((f"direct_stencil dense {factory[:-6]} "
+                          f"{box.volume} cells {str(dt)[6:]}",
+                          _model(factory), box, *_face_inputs(box, dt)))
+    for name, d in solves.items():
+        if d["kernel"] == "direct_stencil":
+            model, box = _box_of(d)
+            cases.append((f"direct_stencil {name} solve's last input, "
+                          f"{box.volume} cells float64", model, box,
+                          d["mask"].cuda(), d["x"].cuda()))
+    rows = {}
+    for name, model, box, mask, x in cases:
+        # a first build loads the evaluator's kernels: time the second
+        sc.pack_direct_stencil(model, box, x.dtype, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pack = sc.pack_direct_stencil(model, box, x.dtype, "cuda")
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        build_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+        y = sc.direct_stencil(pack, mask, x)
+        ref = sc._direct_stencil_plain(pack, mask, x)
+        torch.cuda.synchronize()
+        us = 1e3 * _time_ms(sc.direct_stencil, pack, mask, x)
+        del pack
+        csr = _direct_csr(model, box, mask, x.dtype)
+        y_csr = csr @ x
+        scale = float(ref.abs().max())
+        rows[name] = dict(
+            us=us, rel_err=float((y - ref).abs().max()) / scale,
+            active=float(mask.float().mean()), y=_digest(y),
+            build_ms=build_ms, build_mib=build_mib,
+            csr_us=1e3 * _time_ms(torch.matmul, csr, x),
+            csr_rel_err=float((y_csr - y).abs().max()) / scale)
+        del csr
+    return rows
+
+
+def mode_time(tree, inputs, kernels):
+    sys.path.insert(0, tree)
+    import torch
+
+    solves = torch.load(inputs)
+    rows = {}
+    for kname in kernels.split(","):
+        rows.update((_time_box if kname == "box_stencil"
+                     else _time_direct)(solves))
     print(json.dumps(rows))
 
 
 def main(argv) -> int:
+    import argparse
+
     import torch
 
-    if not argv:
-        print(__doc__, file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="both")
+    ap.add_argument("trees", nargs="+", metavar="DIR")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_stencil: no CUDA device", file=sys.stderr)
         return 1
-    trees = [str(Path(d).resolve()) for d in argv]
+    kernels = ",".join(KERNELS[args.kernel])
+    trees = [str(Path(d).resolve()) for d in args.trees]
     tags = [Path(t).name for t in trees]
     me = str(Path(__file__).resolve())
     builds = [subprocess.Popen([sys.executable, me, "--build", t],
@@ -199,26 +351,41 @@ def main(argv) -> int:
             return 1
     with tempfile.TemporaryDirectory() as tmp:
         inputs = str(Path(tmp) / "inputs.pt")
-        subprocess.run([sys.executable, me, "--capture", trees[0], inputs],
-                       check=True)
+        subprocess.run([sys.executable, me, "--capture", trees[0], inputs,
+                        kernels], check=True)
         runs = {}
         for tag, tree in zip(tags + tags[::-1], trees + trees[::-1]):
-            out = subprocess.run([sys.executable, me, "--time", tree, inputs],
-                                 capture_output=True, text=True, check=True)
+            out = subprocess.run([sys.executable, me, "--time", tree, inputs,
+                                  kernels],
+                                 capture_output=True, text=True)
+            if out.returncode:
+                print(f"[ab] {tag}: exit {out.returncode}\n{out.stderr}")
+                return 1
             for case, row in json.loads(out.stdout.splitlines()[-1]).items():
                 runs.setdefault(case, {}).setdefault(tag, []).append(row)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
-    print(f"[ab] {smi}; us per launch of box_stencil, each checkout's "
-          "runs in the order they ran; worst error relative to max|y| of "
-          "its plain version")
+    print(f"[ab] {smi}; us per launch, each checkout's runs in the order "
+          "they ran; worst error relative to max|y| of its plain version; "
+          "digest of y; for direct_stencil the operand build (ms, MiB of "
+          "device memory above the inputs) and the CSR SpMV (us)")
     for case, by in runs.items():
-        print(f"[ab] {case} (active {next(iter(by.values()))[0]['active']:.4f})")
+        digests = {r["y"] for rs in by.values() for r in rs}
+        print(f"[ab] {case} (active {next(iter(by.values()))[0]['active']:.4f}"
+              f"; {'same y in every checkout' if len(digests) == 1 else 'y differs between checkouts'})")
         for tag, rs in by.items():
+            extra = ""
+            if "csr_us" in rs[0]:
+                extra = ("   build " + " ".join(f"{r['build_ms']:.1f}"
+                                                for r in rs)
+                         + f" ms {max(r['build_mib'] for r in rs):.0f} MiB"
+                         + "   csr " + " ".join(f"{r['csr_us']:.2f}"
+                                               for r in rs))
             print(f"[ab]   {tag:12s} "
                   + " ".join(f"{r['us']:9.2f}" for r in rs)
-                  + f"   err {max(r['rel_err'] for r in rs):.2e}")
+                  + f"   err {max(r['rel_err'] for r in rs):.2e}"
+                  + f"   y {rs[0]['y']}" + extra)
     Path("chiprun_out").mkdir(exist_ok=True)
     Path("chiprun_out/ab_stencil.json").write_text(
         json.dumps(dict(card=smi, runs=runs), indent=1))

@@ -22,7 +22,9 @@ against its plain PyTorch version on the card at the shapes of those paths:
      (reference examples/toggle.f90: ``toggle_programmatic``, t=100,
      fsp_tol 1e-4, krylov_tol 1e-10), and ``ge5d`` at real size through the
      library's callable and through ``models/ge5d_model.input`` (separable,
-     ``box_stencil``), which must agree;
+     ``box_stencil``), which must agree; the CUSTOMPROP and library ge5d
+     solves keep the last input they gave ``direct_stencil`` (one device
+     copy of x per matvec) for phase 6;
   4. ``[sharded]``: the Goutsias solve of phase 2 row-sharded through
      ``solve_cme_box(..., mesh=...)`` in spawned ranks (one card per rank
      with NCCL when two or more cards are visible, up to 4; otherwise 2
@@ -36,10 +38,11 @@ against its plain PyTorch version on the card at the shapes of those paths:
      and on the final mask and w of the toggle and Goutsias solves of
      phase 2 (the kernel's inputs on that path: about 24% and 1.4% of
      their boxes active);
-  6. ``[direct]``: ``direct_stencil`` vs its plain version on the 2^22-cell
-     Goutsias box (also against ``box_stencil``: the model is separable), a
-     512x512 ``toggle_programmatic`` box and the box the ge5d solve
-     reached, in float64 and float32;
+  6. ``[direct]``: ``direct_stencil`` vs its plain version (bit for bit in
+     float64) on the 2^22-cell Goutsias box (also against ``box_stencil``:
+     the model is separable), a 512x512 ``toggle_programmatic`` box and
+     the box the ge5d solve reached, in float64 and float32, and on the
+     last matvec input of the CUSTOMPROP toggle and ge5d solves of phase 3;
   7. ``[halo]``: ``halo_stencil`` vs its plain version on every row shard
      of the 2^22-cell Goutsias box and of the box the Goutsias solve of
      phase 2 ended in (the one [sharded] runs), each cut into 1, 2 and 4
@@ -54,7 +57,7 @@ mask and y everywhere, x and D or the fields only at active cells; or
 operations over the peak rate), its launches on the solve paths, and the time of one PyTorch
 call that computes the same y (a CSR SpMV of the masked generator, built
 from the kernel's operands; the port never calls it).  Inputs of the
-separable kernels meet their contract ``supp(x) ⊆ mask``.
+kernels meet their contract ``supp(x) ⊆ mask``.
 
 Each solve path (2, 3 and 4) runs with the kernels' launch counts set to 0
 just before it and read just after (in each rank, for 4).  Each phase
@@ -66,6 +69,7 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -213,26 +217,19 @@ def _sep_csr(pack, mask):
 
 def _direct_csr(pack, mask):
     """direct_stencil's masked generator as a CSR matrix (the library
-    yardstick, y = A @ x), from the kernel's propensity fields."""
+    yardstick, y = A @ x), from the kernel's diagonal and rates."""
     import torch
 
-    R, vol = pack.n_reactions, pack.volume
-    meta = pack.meta.tolist()
-    off, start, mv = meta[:R], meta[R:2 * R + 1], meta[2 * R + 1:]
+    vol = pack.volume
     i = torch.nonzero(mask).squeeze(1)
-    rows, cols, vals = [i], [i], [-pack.fields.sum(0)[i]]
-    for k in range(R):
-        ok = torch.ones_like(i, dtype=torch.bool)
-        for f in range(start[k], start[k + 1]):
-            shift, emask, nu = mv[3 * f:3 * f + 3]
-            pred = ((i >> shift) & emask) - nu
-            ok &= (pred >= 0) & (pred <= emask)
-        j = (i - off[k]) & (vol - 1)
-        a = pack.fields[k][j]
-        keep = ok & mask[j] & (a != 0)
+    rows, cols, vals = [i], [i], [-pack.diag[i]]
+    for k, off in enumerate(pack.meta.tolist()):
+        u = pack.rates[k][i]
+        j = i - off  # inside the box wherever u != 0
+        keep = (u != 0) & mask[j.clamp(0, vol - 1)]
         rows.append(i[keep])
         cols.append(j[keep])
-        vals.append(a[keep])
+        vals.append(u[keep])
     return _csr(rows, cols, vals, (vol, vol))
 
 
@@ -277,8 +274,9 @@ def phase_env():
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
     info = stencil_cuda.build()
-    print(f"[env] kernels (sep_stencil for box_stencil and halo_stencil, "
-          f"direct_stencil) built in {info.seconds:.2f} s -> {info.path}")
+    print(f"[env] kernels (sep_stencil: separable mode for box_stencil and "
+          f"halo_stencil, direct mode for direct_stencil) built in "
+          f"{info.seconds:.2f} s -> {info.path}")
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"[env]   {line.strip()}")
@@ -297,6 +295,51 @@ def _final_inputs(res):
     x = torch.zeros(res.box.volume, dtype=torch.float64, device="cuda")
     x[idx] = torch.as_tensor(res.probabilities, device="cuda")
     return mask, x
+
+
+class _LastInput:
+    """While active, wraps ``stencil_cuda.<name>`` so that a solve keeps
+    the last (mask, x) it gave the kernel: the kernel's input on that solve
+    path.  Each call copies x on the card into a buffer kept here (one
+    device copy, no host sync); the mask is kept by reference, since the
+    solver builds a new mask wherever one changes (the version counter
+    shows it was not written since)."""
+
+    def __init__(self, name):
+        self.name = name
+        self.mask = self.x = None
+
+    def __enter__(self):
+        import torch
+
+        from krylovfspssa_tpu_torch.ops import stencil_cuda
+
+        kernel = getattr(stencil_cuda, self.name)
+
+        def keep_last(pack, mask, x):
+            if self.x is None or self.x.shape != x.shape:
+                self.x = torch.empty_like(x)
+            self.x.copy_(x)
+            self.mask, self.version = mask, mask._version
+            return kernel(pack, mask, x)
+
+        self._kernel = kernel
+        setattr(stencil_cuda, self.name, keep_last)
+        return self
+
+    def __exit__(self, *exc):
+        from krylovfspssa_tpu_torch.ops import stencil_cuda
+
+        setattr(stencil_cuda, self.name, self._kernel)
+        return False
+
+    def inputs(self):
+        """The last (mask, x), moved to the host; frees the buffer."""
+        if self.mask is None or self.mask._version != self.version:
+            raise AssertionError(f"no intact last input of {self.name}")
+        out = self.mask.cpu(), self.x.cpu()
+        self.mask = self.x = None
+        return out
 
 
 def phase_kernels(launches, finals):
@@ -566,10 +609,12 @@ def _face_inputs(box, dt, seed=0):
     return mask, torch.where(mask, x, 0)
 
 
-def _direct_case(name, model, box, launches):
-    """direct_stencil vs its plain version (and vs make_stencil_matvec, or
-    box_stencil for a separable model) on one geometry in f64 and f32;
-    returns the f64 row."""
+def _direct_case(name, model, box, launches, solve_input=None):
+    """direct_stencil vs its plain version (bit for bit in float64) and vs
+    make_stencil_matvec, or box_stencil for a separable model, on one
+    geometry: random inputs with every face active in f64 and f32, or
+    ``solve_input``, the (mask, x) a solve last gave the kernel, in f64.
+    Returns the first row."""
     import torch
 
     from krylovfspssa_tpu_torch.ops import stencil_cuda
@@ -579,14 +624,22 @@ def _direct_case(name, model, box, launches):
     )
 
     separable = _factored_reaction_tables(model, box) is not None
+    if solve_input is None:
+        runs = [(dt, rtol, _face_inputs(box, dt))
+                for dt, rtol in ((torch.float64, F64_RTOL),
+                                 (torch.float32, F32_RTOL))]
+    else:
+        runs = [(torch.float64, F64_RTOL, [t.cuda() for t in solve_input])]
     row = None
-    for dt, rtol in ((torch.float64, F64_RTOL), (torch.float32, F32_RTOL)):
-        mask, x = _face_inputs(box, dt)
+    for dt, rtol, (mask, x) in runs:
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         pack = stencil_cuda.pack_direct_stencil(model, box, dt, "cuda")
         torch.cuda.synchronize()
         build_ms = (time.perf_counter() - t0) * 1e3
+        build_mib = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
         kern = lambda m, v: stencil_cuda.direct_stencil(pack, m, v)  # noqa
         plain = lambda m, v: stencil_cuda._direct_stencil_plain(pack, m, v)  # noqa
         if separable:  # the destination-form kernel: same y
@@ -598,7 +651,10 @@ def _direct_case(name, model, box, launches):
             ref = make_stencil_matvec(model, box, dt, "cuda")
         y_k, y_p, y_r = kern(mask, x), plain(mask, x), ref(mask, x)
         torch.cuda.synchronize()
-        scale = float(torch.max(torch.abs(y_p)))
+        # near a steady state (a solve's last input) y = A x nearly
+        # cancels, and max|y| is no scale: the largest term |D x| is
+        scale = max(float(torch.max(torch.abs(y_p))),
+                    float(torch.max(torch.abs(pack.diag * x))))
         err = float(torch.max(torch.abs(y_k - y_p)))
         err_r = float(torch.max(torch.abs(y_k - y_r)))
         ms_r = _time_ms(ref, mask, x)
@@ -617,30 +673,35 @@ def _direct_case(name, model, box, launches):
         callable_ = model.custom_propensity is not None
         this = _row(err, _time_ms(kern, mask, x), _time_ms(plain, mask, x),
                     with_fields if callable_ else bare,
-                    _library(_direct_csr(pack, mask), x, y_k, rtol),
+                    _library(_direct_csr(pack, mask), x, y_k, rtol, scale),
                     launches)
         row = row or this
         print(f"[direct] {name} {str(dt)[6:]} vol={box.volume} R={R} "
-              f"{'callable' if callable_ else 'expressions'} "
-              f"max_abs_err={err:.3e} vs plain, {err_r:.3e} vs {ref_name} "
-              f"(limit {rtol:g} x {scale:.3e}); {_us(this)}; bound without "
-              f"the fields {bare[0] * 1e3:.2f} us, with them "
-              f"{with_fields[0] * 1e3:.2f} us; {ref_name} "
-              f"{ms_r * 1e3:.1f} us; fields built in {build_ms:.1f} ms")
-        if not (err <= rtol * scale and err_r <= rtol * scale):
+              f"{'callable' if callable_ else 'expressions'} active "
+              f"{active / box.volume:.4f} max_abs_err={err:.3e} vs plain, "
+              f"{err_r:.3e} vs {ref_name} (limit {rtol:g} x {scale:.3e}); "
+              f"{_us(this)}; bound without the fields {bare[0] * 1e3:.2f} "
+              f"us, with them {with_fields[0] * 1e3:.2f} us (kernel at "
+              f"{100 * with_fields[0] / this['ms']:.0f}% of it); {ref_name} "
+              f"{ms_r * 1e3:.1f} us; fields built in {build_ms:.1f} ms, "
+              f"peak {build_mib:.1f} MiB above the inputs")
+        exact = err == 0.0 or dt != torch.float64
+        if not (exact and err <= rtol * scale and err_r <= rtol * scale):
             raise AssertionError(
                 f"{name} {dt}: direct_stencil disagrees ({err:.3e} vs "
-                f"plain, {err_r:.3e} vs {ref_name}; limit {rtol:g} x "
-                f"{scale:.3e})"
+                f"plain, bit for bit in float64; {err_r:.3e} vs "
+                f"{ref_name}; limit {rtol:g} x {scale:.3e})"
             )
         del pack
     return row
 
 
-def phase_direct_kernels(launches, ge5d, ge5d_box):
+def phase_direct_kernels(launches, ge5d, ge5d_box, finals):
     """direct_stencil on the card at the 2^22-cell Goutsias box (forced
     through the direct form), a 512x512 toggle_programmatic box and the box
-    the ge5d solve reached; returns the Goutsias f64 row."""
+    the ge5d solve reached, and on the last inputs of the solves in
+    ``finals`` ({name: (model, box, (mask, x))}); returns the Goutsias f64
+    row."""
     from krylovfspssa_tpu_torch.models.library import (
         goutsias_model,
         toggle_programmatic_model,
@@ -655,31 +716,47 @@ def phase_direct_kernels(launches, ge5d, ge5d_box):
         "toggle_programmatic-512x512", toggle_programmatic_model(),
         _grown(toggle_programmatic_model(), [[0, 0]], [512, 512]), launches)
     _direct_case("ge5d-solve-box", ge5d, ge5d_box, launches)
+    for name, (model, box, inputs) in finals.items():
+        _direct_case(f"{name}-solve-final", model, box, launches, inputs)
     print(f"[direct] wall {time.perf_counter() - t0:.2f} s")
     return flagship
 
 
+def _solve_input(tag, last, res):
+    """The solve's final box and the last (mask, x) ``last`` (a
+    _LastInput) caught on it, on the host."""
+    mask, x = last.inputs()
+    if mask.numel() != res.box.volume:
+        raise AssertionError(f"{tag}: last input of {mask.numel()} cells, "
+                             f"final box {res.box.volume}")
+    return res.box, (mask, x)
+
+
 def phase_customprop():
-    """The CUSTOMPROP driver (reference examples/toggle.f90)."""
+    """The CUSTOMPROP driver (reference examples/toggle.f90); returns the
+    model, the final box and the last input the solve gave direct_stencil
+    (each matvec's x is copied once on the card to keep it)."""
     from krylovfspssa_tpu_torch.models.library import (
         toggle_programmatic_model,
     )
 
     args = (toggle_programmatic_model(), 100.0, [[0, 0]], 1e-4, 1e-10)
-    solver, res, launches, wall = _solve(*args)
+    with _LastInput("direct_stencil") as last:
+        solver, res, launches, wall = _solve(*args)
     _print_solve("customprop", solver, res, launches, wall)
     _check_solve("customprop", solver, res, launches, 1 - 1e-4, 1 + 1e-4,
                  kernel="direct_stencil")
     # a t=5 window, as for the toggle reference driver
     _profile("toggle_programmatic t=5",
              (toggle_programmatic_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
+    return (args[0], *_solve_input("customprop", last, res))
 
 
 def phase_ge5d():
     """ge5d at real size through the library's custom callable
     (direct_stencil) and through models/ge5d_model.input (separable,
-    box_stencil, with the library's parameters); returns the box the
-    library solve reached."""
+    box_stencil, with the library's parameters); returns the model, the
+    box the library solve reached and its last input to direct_stencil."""
     import torch
 
     from krylovfspssa_tpu_torch import SolverConfig, load_model
@@ -691,15 +768,22 @@ def phase_ge5d():
     inp.reset_parameters(lib.parameters)
     fsp_tol = 1e-4
     results = []
+    last = _LastInput("direct_stencil")
     for tag, model, kernel in (("ge5d-library", lib, "direct_stencil"),
                                ("ge5d-input", inp, "box_stencil")):
         torch.cuda.reset_peak_memory_stats()
-        solver, res, launches, wall = _solve(
-            model, GE5D_T, [[0, 0, 0, 0, 0]], fsp_tol, 1e-8,
-            SolverConfig(box_min_log2=2))
+        with last if model is lib else contextlib.nullcontext():
+            solver, res, launches, wall = _solve(
+                model, GE5D_T, [[0, 0, 0, 0, 0]], fsp_tol, 1e-8,
+                SolverConfig(box_min_log2=2))
         _print_solve(tag, solver, res, launches, wall)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"[{tag}] t={GE5D_T} peak device memory {peak:.2f} GiB")
+        held = ""
+        if model is lib:
+            held = (f" (with the {res.box.volume * 9 / 2 ** 20:.0f} MiB "
+                    "that hold the last input)")
+            captured = _solve_input("ge5d", last, res)
+        print(f"[{tag}] t={GE5D_T} peak device memory {peak:.2f} GiB{held}")
         _check_solve(tag, solver, res, launches, 1 - fsp_tol, 1 + fsp_tol,
                      kernel=kernel)
         if res.box.volume < 1 << 20:
@@ -714,7 +798,7 @@ def phase_ge5d():
     _profile("ge5d-library t=%g" % GE5D_T,
              (lib, GE5D_T, [[0, 0, 0, 0, 0]], fsp_tol, 1e-8,
               SolverConfig(box_min_log2=2)))
-    return lib, results[0].box
+    return lib, *captured
 
 
 def phase_halo(solve_box, launches):
@@ -1038,10 +1122,9 @@ def main(argv=None) -> int:
     # path 2, custom propensities: direct_stencil (and box_stencil for the
     # .input ge5d that the library's ge5d is held against)
     def custom():
-        phase_customprop()
-        return phase_ge5d()
+        return phase_customprop(), phase_ge5d()
 
-    cus, (ge5d, ge5d_box) = _path_launches(
+    cus, (customprop, (ge5d, ge5d_box, ge5d_input)) = _path_launches(
         "custom path", custom, ["direct_stencil", "box_stencil"])
     # path 3, the row-sharded solve: halo_stencil in every rank
     shl = phase_sharded(goutsias_one)
@@ -1051,7 +1134,9 @@ def main(argv=None) -> int:
     box = phase_kernels(launches["box_stencil"], {
         "toggle": (toggle_file_model(), toggle_one),
         "goutsias": (goutsias_model(), goutsias_one)})
-    direct = phase_direct_kernels(launches["direct_stencil"], ge5d, ge5d_box)
+    direct = phase_direct_kernels(
+        launches["direct_stencil"], ge5d, ge5d_box,
+        {"customprop": customprop, "ge5d": (ge5d, ge5d_box, ge5d_input)})
     halo = phase_halo(goutsias_one.box, launches["halo_stencil"])
 
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
@@ -1067,7 +1152,7 @@ def main(argv=None) -> int:
     }, **box), dict({
         "name": "direct_stencil",
         "route": "cuda",
-        "source": "krylovfspssa_tpu_torch/csrc/direct_stencil.cu",
+        "source": sep_source,
         "replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:2153",
         "also_replaces": ["krylovfspssa_tpu/ops/pallas_stencil.py:66"],
     }, **direct), dict({

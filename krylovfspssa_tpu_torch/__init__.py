@@ -3,9 +3,9 @@
 Solves the Chemical Master Equation by the Krylov-FSP algorithm on the
 masked-box backend, on one device (``"cuda"`` by default; the CPU when
 asked for by name).  On an NVIDIA H100 the stencil SpMV is a hand-written
-CUDA kernel (``ops/stencil_cuda.py``): ``csrc/box_stencil.cu`` for
-separable propensities, ``csrc/direct_stencil.cu`` for every other
-model.  The JAX package ``krylovfspssa_tpu`` is the reference this port
+CUDA kernel body, ``csrc/sep_stencil.cuh`` (``ops/stencil_cuda.py``): its
+separable mode for separable propensities, its direct mode for every
+other model.  The JAX package ``krylovfspssa_tpu`` is the reference this port
 is tested against; this package imports torch and numpy and never JAX.
 """
 

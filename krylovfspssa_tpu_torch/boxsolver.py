@@ -117,9 +117,9 @@ class BoxCmeSolver:
     ``direct_stencil`` for the rest (custom propensities, coupled
     expressions).  On the CPU it is the plain PyTorch version.
 
-    Per box geometry the direct form keeps the R propensity fields on the
-    device (R * volume * itemsize bytes: 671 MB for ge5d, R=10, at 2^23
-    cells in float64).  The basis clamp of :meth:`_geometry_config` does
+    Per box geometry the direct form keeps its diagonal and R rate fields
+    on the device ((R + 1) * volume * itemsize bytes: 738 MB for ge5d,
+    R=10, at 2^23 cells in float64).  The basis clamp of :meth:`_geometry_config` does
     not count them, as in the JAX package.
 
     Pass ``mesh`` (a ``parallel.sharded.ShardMesh``) to run the solve

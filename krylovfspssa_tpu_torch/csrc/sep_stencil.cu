@@ -1,7 +1,8 @@
-// C entry points of the separable stencil kernel (sep_stencil.cuh), bound
-// with ctypes by ops/stencil_cuda.py: box_stencil launches them with
-// z0 = 0, rows = vol and no halos, halo_stencil with one rank's rows and
-// its two halos.
+// C entry points of the stencil kernel body (sep_stencil.cuh), bound with
+// ctypes by ops/stencil_cuda.py: box_stencil launches the separable mode
+// with z0 = 0, rows = vol and no halos, halo_stencil with one rank's rows
+// and its two halos; direct_stencil launches the direct mode on the whole
+// box.
 
 #include "sep_stencil.cuh"
 
@@ -19,6 +20,7 @@ int run(const void* x, const void* mask, const void* left, const void* right,
                         diag,
                         tables,
                         row_factors,
+                        nullptr,
                         static_cast<const int*>(meta),
                         y,
                         rows,
@@ -29,14 +31,39 @@ int run(const void* x, const void* mask, const void* left, const void* right,
                         n_tab,
                         log2_tile,
                         0};
-  return kfs_sep::launch<T>(a, stream);
+  return kfs_sep::launch<T, false>(a, stream);
+}
+
+template <typename T>
+int run_direct(const void* x, const void* mask, const void* diag,
+               const void* rates, const void* meta, void* y, int vol,
+               int n_reactions, void* stream) {
+  const kfs_sep::Args a{x,
+                        static_cast<const uint8_t*>(mask),
+                        nullptr,
+                        nullptr,
+                        diag,
+                        nullptr,
+                        nullptr,
+                        rates,
+                        static_cast<const int*>(meta),
+                        y,
+                        vol,
+                        0,
+                        0,
+                        n_reactions,
+                        n_reactions,
+                        0,
+                        0,
+                        0};
+  return kfs_sep::launch<T, true>(a, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Each returns cudaGetLastError() after the launch (0 = launched).
 int kfs_sep_stencil_f64(const void* x, const void* mask, const void* left,
                         const void* right, const void* diag,
                         const void* tables, const void* row_factors,
@@ -57,6 +84,21 @@ int kfs_sep_stencil_f32(const void* x, const void* mask, const void* left,
   return run<float>(x, mask, left, right, diag, tables, row_factors, meta, y,
                     rows, z0, hl, n_reactions, n_meta, n_tab, log2_tile,
                     stream);
+}
+
+// meta is off[R]; rates is U, (R, vol).
+int kfs_direct_stencil_f64(const void* x, const void* mask, const void* diag,
+                           const void* rates, const void* meta, void* y,
+                           int vol, int n_reactions, void* stream) {
+  return run_direct<double>(x, mask, diag, rates, meta, y, vol, n_reactions,
+                            stream);
+}
+
+int kfs_direct_stencil_f32(const void* x, const void* mask, const void* diag,
+                           const void* rates, const void* meta, void* y,
+                           int vol, int n_reactions, void* stream) {
+  return run_direct<float>(x, mask, diag, rates, meta, y, vol, n_reactions,
+                           stream);
 }
 
 }  // extern "C"

@@ -91,8 +91,9 @@ def propensity_fields(model: Model, box: BoxSpace, dtype=torch.float64,
     """(R, vol) tensor of every reaction's propensity a_k at every cell of
     the box (at the cells of ``rows``, see :func:`_cells`, when given),
     evaluated in float64 through :func:`make_propensity_evaluator` and then
-    cast to ``dtype`` — the operand the direct-form stencil (plain version
-    and ``direct_stencil`` kernel alike) reads."""
+    cast to ``dtype`` — the operand of the plain direct-form stencil and of
+    the diagonal (``stencil_cuda.pack_direct_stencil`` builds the kernel's
+    operands from the same evaluator, one field at a time)."""
     evaluate = make_propensity_evaluator(model, box, torch.float64, device)
     flat = _cells(box, device, rows)
     return torch.stack(

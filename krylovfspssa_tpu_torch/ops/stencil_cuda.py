@@ -1,28 +1,30 @@
 """The Hopper stencil kernels and their PyTorch bindings.
 
 ``csrc/sep_stencil.cuh`` is one kernel body, by hand in CUDA C++ for
-``sm_90a`` in float64 and float32, for the separable destination-form CME
-stencil SpMV (the math of ``ops/stencil.py:make_stencil_matvec``).  Two
-wrappers launch it:
+``sm_90a`` in float64 and float32, for the destination-form CME stencil
+SpMV (the math of ``ops/stencil.py:make_stencil_matvec``), in two
+compile-time modes.  Three wrappers launch it:
 
-* ``box_stencil``, on the whole box.  It replaces the four TPU tilings of
-  that function in ``krylovfspssa_tpu/ops/pallas_stencil.py``
+* ``box_stencil`` (separable mode), on the whole box.  It replaces the
+  four TPU tilings of that function in
+  ``krylovfspssa_tpu/ops/pallas_stencil.py``
   (``make_pallas_stencil_matvec_v6``/``_v5``/``_v4``/``_v3``, ROADMAP.md
   Queue B rows B1-B4);
-* ``halo_stencil``, on one rank's rows of a row-sharded box, reading the
-  cells across the shard boundary from the two halos the ranks exchange
-  (ops/halo.py).  It replaces ``make_pallas_local_matvec_v6`` and
-  ``make_pallas_local_matvec_v5``, Queue B rows B7 and B8.
+* ``halo_stencil`` (separable mode), on one rank's rows of a row-sharded
+  box, reading the cells across the shard boundary from the two halos the
+  ranks exchange (ops/halo.py).  It replaces ``make_pallas_local_matvec_v6``
+  and ``make_pallas_local_matvec_v5``, Queue B rows B7 and B8;
+* ``direct_stencil`` (direct mode), on the whole box, for every model that
+  ``factorize_model`` refuses (coupled expressions, custom propensity
+  callables), from a stored diagonal and per-geometry rate fields indexed
+  by destination with validity baked in.  It replaces
+  ``make_pallas_stencil_matvec_v2`` and ``make_pallas_stencil_matvec``
+  (v1), Queue B rows B5 and B6.
 
-Both take the TPU kernels' contract ``supp(x) ⊆ mask``: the kernel reads
-its sources without the mask.  Their plain versions mask x, and agree with
-the kernel on every input that meets the contract.
-
-``csrc/direct_stencil.cu`` computes the direct-form stencil for every
-model that ``factorize_model`` refuses (coupled expressions, custom
-propensity callables) from per-geometry propensity fields.  It replaces
-``make_pallas_stencil_matvec_v2`` and ``make_pallas_stencil_matvec`` (v1),
-Queue B rows B5 and B6.  Each source header says what bounds its kernel.
+All three take the TPU kernels' contract ``supp(x) ⊆ mask``: the kernel
+reads its sources without the mask.  Their plain versions mask x, and
+agree with the kernel on every input that meets the contract.  The source
+header says what bounds the kernel.
 
 The kernels are compiled on first use with ``nvcc`` into
 ``build/krylovfspssa_tpu_torch/libkfs_kernels.so`` (rebuilt when a source or
@@ -48,7 +50,13 @@ import torch
 
 from ..boxspace.box import BoxSpace
 from ..models.model import Model
-from .stencil import _diag_field, _factored_reaction_tables, propensity_fields
+from .stencil import (
+    _cells,
+    _dest_valid,
+    _diag_field,
+    _factored_reaction_tables,
+    make_propensity_evaluator,
+)
 
 #: number of kernel launches made by :func:`box_stencil` (a plain counter
 #: a run resets and reads to show that its matvecs went through the kernel)
@@ -130,7 +138,7 @@ def _library():
             fn.restype = ctypes.c_int
         for name in ("kfs_direct_stencil_f64", "kfs_direct_stencil_f32"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
@@ -468,82 +476,92 @@ def make_box_stencil_matvec(model: Model, box: BoxSpace, dtype=torch.float64,
 
 @dataclasses.dataclass(frozen=True)
 class DirectPack:
-    """``direct_stencil``'s per-geometry operands, on the solve's device."""
+    """``direct_stencil``'s per-geometry operands, on the solve's device:
+    (R + 1) * vol * itemsize bytes of device memory per geometry."""
 
-    #: (R, vol) propensity field of every reaction (built in float64, cast
-    #: to dtype): R * vol * itemsize bytes of device memory per geometry
-    fields: torch.Tensor
-    #: int32 [off[R] | start[R+1] | (shift, ext-1, nu) per moved species]
+    #: D = sum_k a_k, the total outflow rate per cell, summed in k order
+    #: from the propensity fields cast to dtype
+    diag: torch.Tensor
+    #: (R, vol): U_k[z] = valid_k(z) ? a_k(z - nu_k) : 0, each reaction's
+    #: rate at its destination, zero where the source leaves the box
+    rates: torch.Tensor
+    #: int32 off[R], the flat offset of each reaction
     meta: torch.Tensor
     volume: int
     n_reactions: int
-    n_moved: int
 
     @property
     def dtype(self):
-        return self.fields.dtype
+        return self.rates.dtype
+
+
+#: cells whose propensities are evaluated at a time when building
+#: ``direct_stencil``'s operands: bounds the evaluator's temporaries (a
+#: callable's (n, d) state stack and its intermediates) to a few fields'
+#: worth, whatever the box
+_FIELD_CHUNK = 1 << 21
 
 
 def pack_direct_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
                         device="cuda") -> DirectPack:
     """Build ``direct_stencil``'s operands for one box geometry (any
-    model: the fields come from its expressions or its callable)."""
+    model: the fields come from its expressions or its callable).  Each
+    propensity field a_k is evaluated in float64 (``_FIELD_CHUNK`` cells
+    at a time), cast to dtype, added to D and rolled into U_k before the
+    next one is built, so the build holds one field beside the pack."""
     vol = _checked_volume(box)
-    stoich = np.asarray(box.stoichiometry)
-    starts, moved = [0], []
-    for k in range(stoich.shape[0]):
-        for s in np.nonzero(stoich[k])[0]:
-            moved += [int(box.shift_of_species[s]),
-                      (1 << int(box.bits_of_species[s])) - 1,
-                      int(stoich[k, s])]
-        starts.append(len(moved) // 3)
-    meta = np.array([int(o) for o in box.offsets] + starts + moved, np.int32)
+    offsets = [int(o) for o in box.offsets]
+    evaluate = make_propensity_evaluator(model, box, torch.float64, device)
+    chunks = [(c0, min(_FIELD_CHUNK, vol - c0))
+              for c0 in range(0, vol, _FIELD_CHUNK)]
+    diag = torch.zeros(vol, dtype=dtype, device=device)
+    rates = torch.empty((len(offsets), vol), dtype=dtype, device=device)
+    field = torch.empty(vol, dtype=dtype, device=device)
+    for k, off in enumerate(offsets):
+        for c0, n in chunks:
+            field[c0:c0 + n] = evaluate(_cells(box, device, (c0, n)), k)
+        diag += field
+        rates[k] = torch.roll(field, off)
+        for c0, n in chunks:
+            valid = _dest_valid(box, _cells(box, device, (c0, n)), k)
+            rates[k, c0:c0 + n].masked_fill_(~valid, 0)
     return DirectPack(
-        fields=propensity_fields(model, box, dtype, device).contiguous(),
-        meta=torch.as_tensor(meta, device=device),
-        volume=vol,
-        n_reactions=stoich.shape[0],
-        n_moved=len(moved) // 3,
+        diag=diag, rates=rates,
+        meta=torch.tensor(offsets, dtype=torch.int32, device=device),
+        volume=vol, n_reactions=len(offsets),
     )
 
 
 def _direct_stencil_plain(pack: DirectPack, mask: torch.Tensor,
                           x: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch, from the same operands."""
-    R = pack.n_reactions
-    meta = pack.meta.tolist()
-    off, start, mv = meta[:R], meta[R:2 * R + 1], meta[2 * R + 1:]
-    z = torch.arange(pack.volume, dtype=torch.int64, device=x.device)
+    """The kernel's arithmetic in plain PyTorch, from the same operands:
+    y = mask * (-D * xm + sum_k U_k * roll(xm, off_k)).  It masks x, so it
+    holds without the kernel's contract."""
     xm = torch.where(mask, x, 0)
-    y = -sum(pack.fields) * xm
-    for k in range(R):
-        ok = torch.ones(pack.volume, dtype=torch.bool, device=x.device)
-        for f in range(start[k], start[k + 1]):
-            shift, emask, nu = mv[3 * f:3 * f + 3]
-            pred = ((z >> shift) & emask) - nu
-            ok = ok & (pred >= 0) & (pred <= emask)
-        src = (z - off[k]) & (pack.volume - 1)
-        y = y + torch.where(ok, pack.fields[k][src] * xm[src], 0)
+    y = -pack.diag * xm
+    for k, off in enumerate(pack.meta.tolist()):
+        y = y + pack.rates[k] * torch.roll(xm, off)
     return torch.where(mask, y, 0)
 
 
 def direct_stencil(pack: DirectPack, mask: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
-    """y = A x on the masked box for any propensity.  CUDA tensors launch
-    the kernel (on the current stream, without synchronising); CPU tensors
+    """y = A x on the masked box for any propensity.  The kernel takes
+    ``supp(x) ⊆ mask``, as :func:`box_stencil`.  CUDA tensors launch the
+    kernel (on the current stream, without synchronising); CPU tensors
     take the plain version."""
     global DIRECT_LAUNCHES
     if x.device.type == "cpu":
         return _direct_stencil_plain(pack, mask, x)
-    _check_launch_args("direct_stencil", pack.volume, pack.fields, mask, x)
+    _check_launch_args("direct_stencil", pack.volume, pack.rates, mask, x)
     lib = _library()
     fn = (lib.kfs_direct_stencil_f64 if x.dtype == torch.float64
           else lib.kfs_direct_stencil_f32)
     y = torch.empty_like(x)
     _launch("direct_stencil", fn, x.device, (
-        x.data_ptr(), mask.data_ptr(), pack.fields.data_ptr(),
-        pack.meta.data_ptr(), y.data_ptr(), pack.volume, pack.n_reactions,
-        pack.n_moved,
+        x.data_ptr(), mask.data_ptr(), pack.diag.data_ptr(),
+        pack.rates.data_ptr(), pack.meta.data_ptr(), y.data_ptr(),
+        pack.volume, pack.n_reactions,
     ))
     DIRECT_LAUNCHES += 1
     return y

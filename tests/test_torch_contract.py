@@ -1,6 +1,7 @@
-"""The separable stencil kernel's contract ``supp(x) ⊆ mask``
-(csrc/sep_stencil.cuh reads its sources without the mask): the box solver
-keeps it.  A spy wraps every matvec the solver builds — the Arnoldi
+"""The stencil kernels' contract ``supp(x) ⊆ mask`` (csrc/sep_stencil.cuh
+reads its sources without the mask, in the separable mode and in
+direct_stencil's): the box solver keeps it, on the separable path and on
+the custom-propensity one.  A spy wraps every matvec the solver builds — the Arnoldi
 matvecs and the drop ladder's inflow — and records, call by call, whether
 x is non-zero outside the mask.  CPU solves, one device and 2 gloo ranks
 (the rank function lives at module level: spawned processes import it)."""
@@ -35,6 +36,7 @@ def _spy(calls):
 @pytest.mark.parametrize("name,t,x0,fsp_tol", [
     ("toggle", 5.0, [[0, 0]], 1e-4),
     ("goutsias", 1.0, [[2, 6, 0, 2, 0, 0]], 1e-6),
+    ("toggle_programmatic", 2.0, [[0, 0]], 1e-4),
 ])
 def test_solver_keeps_x_inside_mask(monkeypatch, name, t, x0, fsp_tol):
     calls = []

@@ -1,7 +1,8 @@
 """PyTorch port vs JAX package: the direct-form stencil for models whose
 propensities do not factor per species (custom propensity callables and
 coupled expressions), and the packed operands of the ``direct_stencil``
-CUDA kernel.  Float64 against the JAX XLA stencil; float32 against the
+CUDA kernel (the stored diagonal and the destination-indexed rate
+fields).  Float64 against the JAX XLA stencil; float32 against the
 TPU kernels B5 (``make_pallas_stencil_matvec_v2``) and B6
 (``make_pallas_stencil_matvec``) in interpret mode.  The kernel itself is
 compared with its plain version on the card in
@@ -136,17 +137,20 @@ def test_direct_form_matches_jax_f64(name, x0, targets):
 def test_packed_operands_match_plain_with_active_faces(name, x0, targets, dt,
                                                       rtol):
     """direct_stencil on CPU tensors — the kernel's arithmetic over its
-    packed fields, offsets and (shift, ext-1, nu) validity meta — against
+    stored diagonal, destination-indexed rates and offsets — against
     make_stencil_matvec and the JAX stencil, with every face of the box
-    active.  Without the validity meta the same inputs give another y, so
-    the geometry does exercise the kernel's face test."""
+    active.  Rates rolled from the propensity fields without the validity
+    zeroing give another y on the same inputs, so the geometry does
+    exercise the validity baked into the rates."""
     jm, tm, jb, tb, mask, x = _setup(name, x0, targets, seed=5)
     mask = _face_mask(tb, mask)
     m = torch.from_numpy(mask)
     xt = torch.from_numpy(x).to(dt)
     pack = stencil_cuda.pack_direct_stencil(tm, tb, dt, "cpu")
-    assert pack.fields.shape == (tm.n_reactions, tb.volume)
-    assert pack.fields.dtype == dt and pack.meta.dtype == torch.int32
+    assert pack.rates.shape == (tm.n_reactions, tb.volume)
+    assert pack.diag.shape == (tb.volume,)
+    assert pack.rates.dtype == pack.diag.dtype == dt
+    assert pack.meta.dtype == torch.int32
     before = stencil_cuda.DIRECT_LAUNCHES
     got = stencil_cuda.direct_stencil(pack, m, xt)
     assert stencil_cuda.DIRECT_LAUNCHES == before  # no kernel on a CPU tensor
@@ -155,13 +159,57 @@ def test_packed_operands_match_plain_with_active_faces(name, x0, targets, dt,
     _close(got.numpy(), plain.numpy(), rtol)
     _close(got.numpy(), _jax_matvec(jm, jb, mask, x), rtol)
 
-    R = tm.n_reactions
-    no_valid = pack.meta.clone()
-    no_valid[R:2 * R + 1] = 0  # every reaction: no moved species to test
+    fields = tst.propensity_fields(tm, tb, dt, "cpu")
+    unmasked = torch.stack([torch.roll(f, int(off))
+                            for f, off in zip(fields, tb.offsets)])
     blind = stencil_cuda.direct_stencil(
-        dataclasses.replace(pack, meta=no_valid), m, xt)
+        dataclasses.replace(pack, rates=unmasked), m, xt)
     scale = float(torch.max(torch.abs(plain)))
     assert float(torch.max(torch.abs(blind - plain))) > 1e-3 * scale
+
+
+@pytest.mark.parametrize("chunk", [None, 384], ids=["whole", "chunked"])
+@pytest.mark.parametrize("name,x0,targets", [
+    ("toggle_programmatic", [[0, 0]], [64, 128]),
+    ("ge5d", [[0, 0, 0, 0, 0]], [8, 8, 4, 8, 4]),
+])
+def test_pack_matches_jax_propensity_fields(monkeypatch, name, x0, targets,
+                                            chunk):
+    """The pack's diagonal and rates against the JAX package's
+    make_propensity_evaluator, summed in k order, and rolled and
+    validity-masked in numpy, in float64 at rtol 1e-12; and the pack's
+    y against the JAX stencil with every face of the box active.
+    ``chunked``: the fields evaluated 384 cells at a time (a ragged last
+    chunk)."""
+    if chunk is not None:
+        monkeypatch.setattr(stencil_cuda, "_FIELD_CHUNK", chunk)
+    jm, tm, jb, tb, mask, x = _setup(name, x0, targets, seed=7)
+    evaluate = jst.make_propensity_evaluator(jm, jb, jnp.float64)
+    z = np.arange(jb.volume)
+    fields = [np.broadcast_to(np.asarray(evaluate(jnp.asarray(z), k)),
+                              z.shape) for k in range(jm.n_reactions)]
+    diag = np.zeros(jb.volume)
+    for f in fields:
+        diag = diag + f
+    stoich = np.asarray(jb.stoichiometry)
+    rates = []
+    for k, f in enumerate(fields):
+        valid = np.ones(jb.volume, bool)
+        for s in np.nonzero(stoich[k])[0]:
+            ext = 1 << int(jb.bits_of_species[s])
+            pred = ((z >> int(jb.shift_of_species[s])) & (ext - 1)) \
+                - stoich[k, s]
+            valid &= (pred >= 0) & (pred < ext)
+        rates.append(np.where(valid, np.roll(f, int(jb.offsets[k])), 0.0))
+    pack = stencil_cuda.pack_direct_stencil(tm, tb, torch.float64, "cpu")
+    assert pack.meta.tolist() == [int(o) for o in jb.offsets]
+    np.testing.assert_allclose(pack.diag.numpy(), diag, rtol=1e-12, atol=0)
+    np.testing.assert_allclose(pack.rates.numpy(), np.stack(rates),
+                               rtol=1e-12, atol=0)
+    mask = _face_mask(tb, mask)
+    got = stencil_cuda.direct_stencil(pack, torch.from_numpy(mask),
+                                      torch.from_numpy(x))
+    _close(got.numpy(), _jax_matvec(jm, jb, mask, x), 1e-12)
 
 
 @pytest.mark.parametrize(

@@ -1,5 +1,6 @@
-"""The hand-written CUDA stencil kernels (box_stencil, direct_stencil) vs
-their plain PyTorch versions, on the card.  Imports nothing of JAX, so it runs on a GPU host without it:
+"""The hand-written CUDA stencil kernel body (csrc/sep_stencil.cuh) through
+box_stencil and direct_stencil vs their plain PyTorch versions, on the
+card.  Imports nothing of JAX, so it runs on a GPU host without it:
 
     python -m pytest --noconftest -m requires_cuda tests/test_torch_stencil_cuda.py
 
@@ -114,13 +115,15 @@ def test_cuda_direct_kernel_matches_plain(cuda_device, mk, x0, targets, dt,
     """select_stencil_matvec on CUDA takes direct_stencil for a model that
     does not factor, launches it once per matvec, and agrees with the
     plain version (and with the kernel's arithmetic over the same packed
-    operands) with every face of the box active."""
+    operands) with every face of the box active.  x meets the kernel's
+    contract supp(x) in mask."""
     model = mk()
     box = BoxSpace.for_model(model.stoichiometry, x0)
     for s, tgt in enumerate(targets):
         while box.extents[s] < tgt:
             box = box.grow(s)
     m, x = _face_inputs(box, dt, cuda_device)
+    x = torch.where(m, x, 0)
     before = (stencil_cuda.LAUNCHES, stencil_cuda.DIRECT_LAUNCHES)
     got = stencil.select_stencil_matvec(
         model, box, SolverConfig(), dt, cuda_device)(m, x)
@@ -154,3 +157,98 @@ def test_cuda_direct_kernel_matches_box_stencil(cuda_device, dt, rtol):
     torch.cuda.synchronize()
     scale = float(torch.max(torch.abs(y_box)))
     assert float(torch.max(torch.abs(y_dir - y_box))) <= rtol * scale
+
+
+#: direct_stencil geometries beyond DIRECT_GEOMETRIES: smaller than one
+#: warp (a clipped block), and 2^19 cells (more blocks than the card holds
+#: at once: they run in waves)
+BITWISE_GEOMETRIES = DIRECT_GEOMETRIES + [
+    (library.toggle_programmatic_model, [[0, 0]], [2, 4]),
+    (library.toggle_programmatic_model, [[0, 0]], [1024, 512]),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("corner", [False, True], ids=["dense", "corner"])
+@pytest.mark.parametrize("shift", [0, 1, 3])
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+@pytest.mark.parametrize(
+    "mk,x0,targets", BITWISE_GEOMETRIES,
+    ids=["toggle_programmatic", "ge5d", "coupled", "toggle_programmatic-2x4",
+         "toggle_programmatic-2^19"])
+def test_cuda_direct_kernel_bitwise(cuda_device, mk, x0, targets, dt, shift,
+                                    corner):
+    """direct_stencil equals its plain version bit for bit in float64
+    (products rounded before they are added, in the plain version's order)
+    and to 1e-5 x max|y| in float32, with x and mask ``shift`` elements
+    into their buffers, every face of the box active and, for ``corner``,
+    only the box's low corner active (whole warps of inactive cells).  x
+    meets the kernel's contract supp(x) in mask."""
+    model = mk()
+    box = BoxSpace.for_model(model.stoichiometry, x0)
+    for s, tgt in enumerate(targets):
+        while box.extents[s] < tgt:
+            box = box.grow(s)
+    vol = box.volume
+    mask, x = _face_inputs(box, dt, cuda_device, seed=2)
+    if corner:
+        keep = torch.zeros(box.shape, dtype=torch.bool, device=cuda_device)
+        keep[tuple(slice(0, max(1, n // 4)) for n in box.shape)] = True
+        mask &= keep.reshape(-1)
+    m = torch.zeros(vol + shift, dtype=torch.bool, device=cuda_device)
+    xs = torch.zeros(vol + shift, dtype=dt, device=cuda_device)
+    m[shift:], xs[shift:] = mask, torch.where(mask, x, 0)
+    m, xs = m[shift:], xs[shift:]
+    pack = stencil_cuda.pack_direct_stencil(model, box, dt, cuda_device)
+    before = stencil_cuda.DIRECT_LAUNCHES
+    got = stencil_cuda.direct_stencil(pack, m, xs)
+    torch.cuda.synchronize()
+    assert stencil_cuda.DIRECT_LAUNCHES == before + 1
+    plain = stencil_cuda._direct_stencil_plain(pack, m, xs)
+    if dt == torch.float64:
+        assert torch.equal(got, plain)
+    else:
+        scale = float(torch.max(torch.abs(plain)))
+        assert float(torch.max(torch.abs(got - plain))) <= 1e-5 * scale
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_cuda_separable_results_unchanged_by_direct_mode(cuda_device, dt):
+    """The body's two modes share no state: box_stencil and halo_stencil
+    give the same bits before and after direct_stencil launches of
+    another geometry."""
+    from krylovfspssa_tpu_torch.ops.halo import halo_from_global, halo_width
+
+    model = library.goutsias_model()
+    box = BoxSpace.for_model(model.stoichiometry, [[2, 6, 0, 2, 0, 0]])
+    for s, tgt in enumerate([16, 16, 8, 4, 4, 4]):
+        while box.extents[s] < tgt:
+            box = box.grow(s)
+    m, x = _face_inputs(box, dt, cuda_device, seed=3)
+    x = torch.where(m, x, 0)
+    bpack = stencil_cuda.pack_stencil(model, box, dt, cuda_device)
+    L, H = box.volume // 2, halo_width(box)
+
+    def separable():
+        shards = [stencil_cuda.halo_stencil(
+            stencil_cuda.pack_halo_stencil(model, box, dt, cuda_device,
+                                           z0, L),
+            m[z0:z0 + L], x[z0:z0 + L], *halo_from_global(x, z0, L, H))
+            for z0 in (0, L)]
+        return stencil_cuda.box_stencil(bpack, m, x), torch.cat(shards)
+
+    first = separable()
+    dmodel = library.ge5d_model()
+    dbox = BoxSpace.for_model(dmodel.stoichiometry, [[0] * 5])
+    for s, tgt in enumerate([8, 8, 4, 8, 4]):
+        while dbox.extents[s] < tgt:
+            dbox = dbox.grow(s)
+    dm, dx = _face_inputs(dbox, dt, cuda_device, seed=4)
+    dpack = stencil_cuda.pack_direct_stencil(dmodel, dbox, dt, cuda_device)
+    for _ in range(3):
+        stencil_cuda.direct_stencil(dpack, dm, torch.where(dm, dx, 0))
+    again = separable()
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    assert torch.equal(first[0], first[1])
