@@ -7,8 +7,10 @@ NVIDIA GPU.
 
 Builds the hand-written stencil kernels from ``krylovfspssa_tpu_torch/csrc``
 with nvcc, drives the port's three solve paths through
-``solve_cme_box``/``BoxCmeSolver`` on ``cuda``, then holds each kernel
-against its plain PyTorch version on the card at the shapes of those paths:
+``solve_cme_box``/``BoxCmeSolver`` on ``cuda`` -- in the default fused main
+loop (krylov/advance.py) unless a phase says otherwise -- then holds each
+kernel against its plain PyTorch version on the card at the shapes of those
+paths:
 
   1. environment: card name and power limit, torch/CUDA versions, kernel
      build time and nvcc's register report; a small toggle solve on the
@@ -20,11 +22,12 @@ against its plain PyTorch version on the card at the shapes of those paths:
      ends in a 2^22-cell box;
   3. custom propensities (``direct_stencil``): the CUSTOMPROP driver
      (reference examples/toggle.f90: ``toggle_programmatic``, t=100,
-     fsp_tol 1e-4, krylov_tol 1e-10), and ``ge5d`` at real size through the
-     library's callable and through ``models/ge5d_model.input`` (separable,
-     ``box_stencil``), which must agree; the CUSTOMPROP and library ge5d
+     fsp_tol 1e-4, krylov_tol 1e-10), and ``ge5d`` at real size to t=2
+     through the library's callable and through
+     ``models/ge5d_model.input`` (separable, ``box_stencil``), which must
+     agree, each in at most 2^23 cells; the CUSTOMPROP and library ge5d
      solves keep the last input they gave ``direct_stencil`` (one device
-     copy of x per matvec) for phase 6;
+     copy of x per matvec) for phase 7;
   4. ``[sharded]``: the Goutsias solve of phase 2 row-sharded through
      ``solve_cme_box(..., mesh=...)`` in spawned ranks (one card per rank
      with NCCL when two or more cards are visible, up to 4; otherwise 2
@@ -32,18 +35,26 @@ against its plain PyTorch version on the card at the shapes of those paths:
      with the cost of one all_reduce and one halo swap, and once more with
      rank 0 under torch.profiler (collective counts, the largest device
      items);
-  5. ``[kernels]``: ``box_stencil`` vs its plain version at three box
+  5. off the counted paths: ``[fused]``, the toggle t=1000 of phase 2 in
+     the stepwise loop beside the fused one, and a birth-death model whose
+     segments of 5 steps end on their budget and shrink the box, held
+     against its closed form and against the same solve on the CPU (the
+     first step where their records part is printed); ``[profile]``,
+     device-busy share and device-to-host copies and syncs per attempted
+     step of toggle t=5 in both loops, Goutsias t=10, toggle_programmatic
+     t=5 and the library ge5d;
+  6. ``[kernels]``: ``box_stencil`` vs its plain version at three box
      geometries (the 2^22-cell Goutsias box, a 512x512 toggle box, a
      128-cell box smaller than one thread block) in float64 and float32,
      and on the final mask and w of the toggle and Goutsias solves of
      phase 2 (the kernel's inputs on that path: about 24% and 1.4% of
      their boxes active);
-  6. ``[direct]``: ``direct_stencil`` vs its plain version (bit for bit in
+  7. ``[direct]``: ``direct_stencil`` vs its plain version (bit for bit in
      float64) on the 2^22-cell Goutsias box (also against ``box_stencil``:
      the model is separable), a 512x512 ``toggle_programmatic`` box and
      the box the ge5d solve reached, in float64 and float32, and on the
      last matvec input of the CUSTOMPROP toggle and ge5d solves of phase 3;
-  7. ``[halo]``: ``halo_stencil`` vs its plain version on every row shard
+  8. ``[halo]``: ``halo_stencil`` vs its plain version on every row shard
      of the 2^22-cell Goutsias box and of the box the Goutsias solve of
      phase 2 ended in (the one [sharded] runs), each cut into 1, 2 and 4
      shards on one card (halos cut from the global vector), float64 and
@@ -51,7 +62,7 @@ against its plain PyTorch version on the card at the shapes of those paths:
      vector (bit for bit), with the times per shard beside
      ``box_stencil``'s.
 
-Every line of 5-7 gives the kernel's time, its plain version's, its bound
+Every line of 6-8 gives the kernel's time, its plain version's, its bound
 (the bytes the function needs on this run's data over 3.35 TB/s: the
 mask and y everywhere, x and D or the fields only at active cells; or
 operations over the peak rate), its launches on the solve paths, and the time of one PyTorch
@@ -60,7 +71,8 @@ from the kernel's operands; the port never calls it).  Inputs of the
 kernels meet their contract ``supp(x) ⊆ mask``.
 
 Each solve path (2, 3 and 4) runs with the kernels' launch counts set to 0
-just before it and read just after (in each rank, for 4).  Each phase
+just before it and read just after (in each rank, for 4); these counts, and
+only these, are the kernels' launches.  Each phase
 prints its own lines with its wall time.  Any failure raises and exits
 non-zero.  The last lines are a JSON record of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -96,9 +108,10 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 #: the ge5d scenario of tests/test_models_e2e.py (x0 = 0, fsp_tol 1e-4,
-#: krylov_tol 1e-8, box_min_log2 2) cut from t=2 to t=1: at t=2 the box
-#: outgrows max_box_volume (2^23) in both packages; by t=1 it is 2^23 cells
-GE5D_T = 1.0
+#: krylov_tol 1e-8, box_min_log2 2) at its horizon; the fused loop keeps
+#: the box within max_box_volume (2^23 cells) to there, where the stepwise
+#: loop of both packages overflows it after t of about 1.26
+GE5D_T = 2.0
 
 
 def _smi() -> str:
@@ -445,9 +458,39 @@ def _reset_launches():
     stencil_cuda.HALO_LAUNCHES = 0
 
 
+@contextlib.contextmanager
+def _spied(solver, name, spy):
+    """While active, ``solver.<name>`` is ``spy(inner)`` of the method
+    (the wrapper goes with the block: it refers back to the solver, and
+    the cycle would keep the solver's device memory until a collection)."""
+    setattr(solver, name, spy(getattr(solver, name)))
+    try:
+        yield
+    finally:
+        delattr(solver, name)
+
+
+def _counting_segments(solver):
+    """Count the fused segments ``solver`` runs, in ``solver.segments``."""
+    solver.segments = 0
+
+    def spy(inner):
+        def advance(box, growable):
+            adv = inner(box, growable)
+
+            def counted(*args):
+                solver.segments += 1
+                return adv(*args)
+            return counted
+        return advance
+
+    return _spied(solver, "_advance", spy)
+
+
 def _solve(model, t, x0, fsp_tol, krylov_tol, config=None):
     """One solve on the card; returns (solver, result, launches of each
-    kernel during the solve, wall seconds)."""
+    kernel during the solve, wall seconds).  ``solver.segments`` is the
+    number of fused segments (0 in the stepwise loop)."""
     import torch
 
     from krylovfspssa_tpu_torch import BoxCmeSolver
@@ -455,7 +498,8 @@ def _solve(model, t, x0, fsp_tol, krylov_tol, config=None):
     solver = BoxCmeSolver(model, config, device="cuda")
     before = _launches()
     t0 = time.perf_counter()
-    res = solver.solve(t, x0, fsp_tol=fsp_tol, krylov_tol=krylov_tol)
+    with _counting_segments(solver):
+        res = solver.solve(t, x0, fsp_tol=fsp_tol, krylov_tol=krylov_tol)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in _launches().items()}
@@ -488,7 +532,10 @@ def _check_solve(tag, solver, res, launches, wsum_lo, wsum_hi,
 
 def _print_solve(tag, solver, res, launches, wall):
     s = res.stats
-    print(f"[{tag}] nstep {s.nstep} nmult {s.nmult} nreject {s.nreject} "
+    loop = (f"fused, {solver.segments} segments" if solver.config.fused_steps
+            else "stepwise")
+    print(f"[{tag}] ({loop}) nstep {s.nstep} nmult {s.nmult} "
+          f"nreject {s.nreject} "
           f"nexph {s.nexph} expansions {s.n_expansions} drops {s.n_drops} "
           f"fsp {s.final_fsp_size} box {res.box.shape} vol {res.box.volume} "
           f"m_eff {solver.m_eff(res.box)} wsum {res.wsum:.10f} "
@@ -510,18 +557,136 @@ def _l1(a, b) -> float:
     return float(np.abs(pa - pb).sum())
 
 
+TOGGLE = (1000.0, [[0, 0]], 1e-4, 1e-10)
+
+
 def phase_toggle():
     """Returns the solve's result."""
     from krylovfspssa_tpu_torch.models.library import toggle_file_model
 
-    args = (toggle_file_model(), 1000.0, [[0, 0]], 1e-4, 1e-10)
-    solver, res, launches, wall = _solve(*args)
+    solver, res, launches, wall = _solve(toggle_file_model(), *TOGGLE)
     _print_solve("toggle", solver, res, launches, wall)
     _check_solve("toggle", solver, res, launches, 1 - 1e-4, 1 + 1e-4)
-    # a t=5 window of the same scenario: a trace of all of t=1000 holds
-    # ~10^6 events and takes minutes to reduce
-    _profile("toggle t=5", (toggle_file_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
     return res
+
+
+def _birth_death_exact(n_max, x0, kp, kd, t):
+    """P(X(t) = n), n = 0..n_max, of ``0 -> X`` at kp and ``X -> 0`` at
+    kd*X from X(0) = x0: the survivors of x0 are Binomial(x0, e^{-kd t}),
+    the newcomers Poisson(kp/kd (1 - e^{-kd t})), independent."""
+    import math
+
+    q = math.exp(-kd * t)
+    binom = np.array([math.comb(x0, k) * q ** k * (1 - q) ** (x0 - k)
+                      for k in range(x0 + 1)])
+    lam = kp / kd * (1 - q)
+    pois = np.empty(n_max + 1)
+    pois[0] = math.exp(-lam)
+    for k in range(1, n_max + 1):
+        pois[k] = pois[k - 1] * lam / k
+    return np.convolve(binom, pois)[:n_max + 1]
+
+
+#: the integer fields of a step record, which two runs of one trajectory
+#: share exactly
+RECORD_INTS = ("nstep", "fsp_size", "m", "advanced", "expanded", "dropped")
+
+
+def _first_parting(a, b):
+    """Index of the first step record whose integer fields differ between
+    the lists ``a`` and ``b`` (or where one ends), None if they agree."""
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        if any(getattr(ra, k) != getattr(rb, k) for k in RECORD_INTS):
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def _record_line(r) -> str:
+    return ", ".join(f"{k} {getattr(r, k)}" for k in
+                     (*RECORD_INTS, "t_step", "t_now", "wsum", "err_loc"))
+
+
+def phase_fused(fused):
+    """[fused]: toggle t=1000 in the stepwise loop beside ``fused`` (the
+    default fused solve of phase 2), both through the gate and within
+    2 * fsp_tol of each other; models/birth_death_model.input with
+    ``max_steps_per_call=5``, which must shrink its box and stay within
+    2 * fsp_tol of the closed form, beside the same solve on the CPU."""
+    from krylovfspssa_tpu_torch import BoxCmeSolver, SolverConfig, load_model
+    from krylovfspssa_tpu_torch.models.library import toggle_file_model
+
+    t0 = time.perf_counter()
+    solver, res, launches, wall = _solve(
+        toggle_file_model(), *TOGGLE, SolverConfig(fused_steps=False))
+    _print_solve("fused", solver, res, launches, wall)
+    _check_solve("fused: stepwise toggle", solver, res, launches,
+                 1 - 1e-4, 1 + 1e-4)
+    l1 = _l1(res, fused)
+    print(f"[fused] toggle t=1000: stepwise nstep {res.stats.nstep} nmult "
+          f"{res.stats.nmult} wall {wall:.2f} s, fused nstep "
+          f"{fused.stats.nstep} nmult {fused.stats.nmult}; L1 {l1:.3e} "
+          f"(limit {2 * TOGGLE[2]:g})")
+    if not l1 <= 2 * TOGGLE[2]:
+        raise AssertionError(f"fused and stepwise toggle differ: L1 {l1:.3e}")
+
+    # X from 200 down to its steady-state mean kp/kd = 10
+    model = load_model(Path(__file__).resolve().parent / "models"
+                       / "birth_death_model.input")
+    model.reset_parameters([1.0, 0.1])
+    shrinks = []
+
+    def spy(inner):
+        def counted(box, *arrays):
+            out = inner(box, *arrays)
+            if out[0] is not box:
+                shrinks.append(out[0].shape)
+            return out
+        return counted
+
+    probe = BoxCmeSolver(model, SolverConfig(max_steps_per_call=5),
+                         device="cuda")
+    before = _launches()
+    t1 = time.perf_counter()
+    with _spied(probe, "_shrink_if_loose", spy), _counting_segments(probe):
+        r = probe.solve(50.0, [[200]], fsp_tol=1e-6, krylov_tol=1e-10)
+    bd_wall = time.perf_counter() - t1
+    bd_launches = {k: v - before[k] for k, v in _launches().items()}
+    _print_solve("fused", probe, r, bd_launches, bd_wall)
+    print(f"[fused] birth-death budget 5: shrinks {shrinks}, final box "
+          f"{r.box.shape}, fsp {r.stats.final_fsp_size} (JAX fused loop on "
+          f"a CPU: 58 steps, 3 shrinks, box (64,)); phase wall "
+          f"{time.perf_counter() - t0:.2f} s")
+    _check_solve("fused: birth-death", probe, r, bd_launches, 1 - 1e-6,
+                 1 + 1e-6)
+    if not shrinks:
+        raise AssertionError("birth-death budget 5: the box never shrank")
+
+    n_max = int(r.states[:, 0].max()) + 400
+    exact = _birth_death_exact(n_max, 200, 1.0, 0.1, 50.0)
+    got = np.zeros(n_max + 1)
+    got[r.states[:, 0]] = r.probabilities
+    l1 = float(np.abs(got - exact).sum())
+    cpu = BoxCmeSolver(model, SolverConfig(max_steps_per_call=5),
+                       device="cpu").solve(50.0, [[200]], fsp_tol=1e-6,
+                                           krylov_tol=1e-10)
+    cpu_l1 = _l1(r, cpu)
+    print(f"[fused] birth-death budget 5: L1 to the closed form {l1:.3e} "
+          f"(limit {2e-6:g}); the same solve on the CPU: nstep "
+          f"{cpu.stats.nstep} box {cpu.box.shape} fsp "
+          f"{cpu.stats.final_fsp_size}, L1 card vs CPU {cpu_l1:.3e}")
+    i = _first_parting(r.stats.records, cpu.stats.records)
+    if i is None:
+        print("[fused] birth-death budget 5: card and CPU records agree in "
+              f"every integer field ({len(r.stats.records)} steps)")
+    else:
+        for where, recs in (("card", r.stats.records),
+                            ("cpu", cpu.stats.records)):
+            for j in range(max(i - 1, 0), min(i + 2, len(recs))):
+                print(f"[fused] birth-death records part at step index {i}"
+                      f": {where} [{j}] {_record_line(recs[j])}")
+    if not l1 <= 2e-6:
+        raise AssertionError(f"birth-death budget 5: L1 to the closed form "
+                             f"{l1:.3e} > 2e-6")
 
 
 def _device_us(e) -> float:
@@ -537,10 +702,12 @@ def _device_us(e) -> float:
 
 
 def _profile(tag, args):
-    """Device-busy and host-synchronisation shares of one solve.  The
-    solve runs once plainly (its wall is the denominator) and once under
-    torch.profiler (kernel times and the count of host syncs; the
-    profiler slows the host, not the kernels)."""
+    """Device-busy and host-synchronisation shares of one solve, and its
+    device-to-host copies and synchronisations per attempted step (per
+    step record).  The solve runs once plainly (its wall is the
+    denominator) and once under torch.profiler (kernel times and the
+    counts of host syncs and copies; the profiler slows the host, not the
+    kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     res, wall = _solve(*args)[1::2]
@@ -551,6 +718,8 @@ def _profile(tag, args):
     dev_us = sum(_device_us(e) for e in events)
     syncs = [e for e in events if e.key == "cudaStreamSynchronize"]
     n_sync = sum(e.count for e in syncs)
+    n_d2h = sum(e.count for e in events if e.key.startswith("Memcpy DtoH"))
+    attempts = max(len(res.stats.records), 1)
     blocked_us = sum(e.cpu_time_total for e in events
                      if e.key in ("cudaStreamSynchronize", "cudaMemcpyAsync"))
     if dev_us == 0.0:
@@ -562,13 +731,40 @@ def _profile(tag, args):
           f"{100 * dev_us / 1e6 / wall:.1f}% of that wall; {n_sync} host "
           f"syncs ({1e6 * wall / max(n_sync, 1):.0f} us of wall per sync); "
           f"under the profiler (wall {wall_prof:.3f} s) the host was "
-          f"blocked in syncs/D2H copies {blocked_us / 1e6:.3f} s")
+          f"blocked in syncs/D2H copies {blocked_us / 1e6:.3f} s; per "
+          f"attempted step ({attempts}): {n_d2h / attempts:.1f} D2H copies, "
+          f"{n_sync / attempts:.1f} syncs")
     for e in sorted(events, key=lambda e: -_device_us(e))[:6]:
         print(f"[profile]   {e.key[:60]:60s} {_device_us(e) / 1e3:9.1f} ms "
               f"x{e.count}")
 
 
 GOUTSIAS = (10.0, [[2, 6, 0, 2, 0, 0]], 1e-6, 1e-8)
+
+
+def phase_profiles():
+    """[profile] of the solves of phases 2 and 3, each run again off the
+    counted paths.  Toggle and toggle_programmatic in a t=5 window (a trace
+    of all of toggle t=1000 holds ~10^6 events and takes minutes to
+    reduce), toggle in each loop."""
+    from krylovfspssa_tpu_torch import SolverConfig
+    from krylovfspssa_tpu_torch.models.library import (
+        ge5d_model,
+        goutsias_model,
+        toggle_file_model,
+        toggle_programmatic_model,
+    )
+
+    for loop, config in (("fused", None),
+                         ("stepwise", SolverConfig(fused_steps=False))):
+        _profile(f"toggle t=5 {loop}",
+                 (toggle_file_model(), 5.0, [[0, 0]], 1e-4, 1e-10, config))
+    _profile("goutsias t=10", (goutsias_model(), *GOUTSIAS))
+    _profile("toggle_programmatic t=5",
+             (toggle_programmatic_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
+    _profile("ge5d-library t=%g" % GE5D_T,
+             (ge5d_model(), GE5D_T, [[0, 0, 0, 0, 0]], 1e-4, 1e-8,
+              SolverConfig(box_min_log2=2)))
 
 
 def phase_goutsias():
@@ -586,8 +782,6 @@ def phase_goutsias():
     _check_solve("goutsias", solver, res, launches, 1 - 1e-6, 1 + 1e-6)
     if res.box.volume < 1 << 22:
         raise AssertionError(f"goutsias box volume {res.box.volume} < 2^22")
-    del solver
-    _profile("goutsias t=10", (goutsias_model(), *GOUTSIAS))
     return res
 
 
@@ -746,9 +940,6 @@ def phase_customprop():
     _print_solve("customprop", solver, res, launches, wall)
     _check_solve("customprop", solver, res, launches, 1 - 1e-4, 1 + 1e-4,
                  kernel="direct_stencil")
-    # a t=5 window, as for the toggle reference driver
-    _profile("toggle_programmatic t=5",
-             (toggle_programmatic_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
     return (args[0], *_solve_input("customprop", last, res))
 
 
@@ -783,11 +974,15 @@ def phase_ge5d():
             held = (f" (with the {res.box.volume * 9 / 2 ** 20:.0f} MiB "
                     "that hold the last input)")
             captured = _solve_input("ge5d", last, res)
-        print(f"[{tag}] t={GE5D_T} peak device memory {peak:.2f} GiB{held}")
+        geoms = solver.cached_geometries
+        print(f"[{tag}] t={GE5D_T} peak device memory {peak:.2f} GiB{held}; "
+              f"{len(geoms)} cached geometries "
+              f"{sorted(geoms, key=np.prod)}")
         _check_solve(tag, solver, res, launches, 1 - fsp_tol, 1 + fsp_tol,
                      kernel=kernel)
-        if res.box.volume < 1 << 20:
-            raise AssertionError(f"{tag}: box volume {res.box.volume} < 2^20")
+        if not 1 << 20 <= res.box.volume <= 1 << 23:
+            raise AssertionError(f"{tag}: box volume {res.box.volume} "
+                                 "outside [2^20, 2^23]")
         results.append(res)
         del solver
     l1 = _l1(*results)
@@ -795,9 +990,6 @@ def phase_ge5d():
     if not l1 <= 2 * fsp_tol:
         raise AssertionError(f"ge5d library and .input solves differ: "
                              f"L1 {l1:.3e}")
-    _profile("ge5d-library t=%g" % GE5D_T,
-             (lib, GE5D_T, [[0, 0, 0, 0, 0]], fsp_tol, 1e-8,
-              SolverConfig(box_min_log2=2)))
     return lib, *captured
 
 
@@ -1128,6 +1320,9 @@ def main(argv=None) -> int:
         "custom path", custom, ["direct_stencil", "box_stencil"])
     # path 3, the row-sharded solve: halo_stencil in every rank
     shl = phase_sharded(goutsias_one)
+    # off the counted paths: the other loop, a non-default budget, profiles
+    phase_fused(toggle_one)
+    phase_profiles()
 
     launches = {k: sep[k] + cus[k] + shl[k] for k in sep}
     print(f"[paths] launches of the three solve paths: {launches}")

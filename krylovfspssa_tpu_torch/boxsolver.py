@@ -15,21 +15,33 @@ elementwise device work:
                        (StateSpace.f90:550-630), so this backend draws no
                        random numbers
   * box growth      -> double one axis when active cells touch its face
+  * box shrink      -> halve an axis whose active cells fit in
+                       ``box_shrink_fraction`` of it
 
-The port runs the host-driven stepwise loop of the JAX package
-(``BoxCmeSolver.solve`` with ``fused_steps=False``) whatever
-``config.fused_steps`` says.  That is the same algorithm as the JAX fused
-device loop (``tests/test_box.py::test_fused_loop_matches_host_loop`` pins
-the two equal); a fused device loop for this port is later work.
+Two main loops, as in the JAX package, chosen by ``config.fused_steps``:
+
+  * fused (the default): segments of attempted steps run by
+    ``krylov/advance.py`` until the solve is done, active cells touch a
+    growable face (GROW: grow, shrink loose axes, one dilation round if the
+    box changed), the segment's budget of ``max_steps_per_call`` steps
+    (at most ``checkpoint_every`` when checkpointing) is spent (BUDGET:
+    shrink loose axes, checkpoint), or the stepper fails.  An expansion
+    dilates inside the current box; growth waits for the GROW event.
+  * stepwise (``fused_steps=False``): one attempted step at a time; an
+    expansion grows the box at once, and the box never shrinks.
+
+The two loops give the same steps while no segment ends on its budget and
+nothing shrinks (``tests/test_torch_advance.py``); a shrink after a BUDGET
+event changes the box, and with it the trajectory.
 
 With ``mesh`` (parallel/sharded.py) the solve is row-sharded: every rank
 of the mesh calls ``solve`` with the same arguments, holds its rows of the
 mask, the vector and the Krylov basis, and runs the same host loop on
 scalars that are reduced over the ranks, so every rank takes the same
-branches.  The matvec exchanges halos (ops/halo.py); box growth gathers
-the mask and the vector to every rank, grows and re-slices them, as the
-JAX package does with ``host_gather``.  Every rank returns the whole
-result.
+branches.  The matvec exchanges halos (ops/halo.py); growth and shrink
+gather the mask and the vector to every rank, reshape the box and re-slice
+them, as the JAX package does with ``host_gather``.  Every rank returns
+the whole result.
 """
 
 from __future__ import annotations
@@ -148,6 +160,10 @@ class BoxCmeSolver:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self._dtype = _DTYPES[self.config.resolved_dtype(self.device)]
         self._fns: dict = {}
+        #: the Krylov basis, shared by every geometry's step function so
+        #: that one basis is alive at a time
+        self._basis: dict = {}
+        self._ckpt = (None, 0, [0])
 
     @property
     def dtype(self) -> torch.dtype:
@@ -161,6 +177,7 @@ class BoxCmeSolver:
         if dt is not self._dtype:
             self._dtype = dt
             self._fns = {}
+            self._basis.clear()
 
     # ---------------------------------------------------------------- #
 
@@ -220,12 +237,21 @@ class BoxCmeSolver:
                 lambda mask: (lambda x: matvec(mask, x)),
                 self._geometry_config(box), op_info,
                 reduce=None if mesh is None else mesh.sum,
+                basis=self._basis,
             )
             self._fns[key] = _GeometryFns(
                 step=step, matvec=matvec, diag=diag,
                 dilate=make_dilate_fn(box, self.device, mesh),
             )
         return self._fns[key]
+
+    @property
+    def cached_geometries(self) -> list[tuple[int, ...]]:
+        """Shapes of the box geometries whose operator pieces are cached
+        (each holds its stencil operands, diagonal and dilation masks on
+        the device)."""
+        return [tuple(1 << b for b in k[0]) for k in self._fns
+                if k[0] != "adv"]
 
     def _total(self, t):
         """A float64 sum over the cell axis: over every rank under a mesh
@@ -267,6 +293,64 @@ class BoxCmeSolver:
             mask = new_box.embed(box, mask, fill=False)
             w = new_box.embed(box, w, fill=0.0)
             box = new_box
+
+    def _shrink_if_loose(self, box, mask, w):
+        """Halve axes whose active cells fit in the shrink fraction.
+
+        ``mask`` and ``w`` are the whole box (on the device); the decisions
+        are taken on a host copy of the mask, which every rank of a mesh
+        holds whole, so every rank takes the same shrinks.  After a
+        transient (or a large drop) the bounding power of two can be far
+        larger than the support, wasting matvec work and basis memory.
+        Hysteresis (default 3/8 < 1/2) avoids grow/shrink churn; a
+        revisited geometry's pieces are cached.
+        """
+        cfg = self.config
+        if cfg.box_shrink_fraction <= 0.0:
+            return box, mask, w
+        mask_np = mask.cpu().numpy()
+        while True:
+            m = mask_np.reshape(box.shape)
+            changed = False
+            for s in range(box.n_species):
+                ax = box.axis_of_species[s]
+                ext = box.shape[ax]
+                if ext <= (1 << cfg.box_min_log2):
+                    continue
+                other = tuple(i for i in range(len(box.shape)) if i != ax)
+                per = m.any(axis=other)
+                hi = int(np.nonzero(per)[0].max()) if per.any() else -1
+                if hi + 1 <= cfg.box_shrink_fraction * ext:
+                    new_box = box.shrink(s)
+                    mask_np = new_box.embed(
+                        box, torch.from_numpy(mask_np), fill=False).numpy()
+                    mask = new_box.embed(box, mask, fill=False)
+                    w = new_box.embed(box, w, fill=0.0)
+                    box = new_box
+                    changed = True
+                    break
+            if not changed:
+                return box, mask, w
+
+    def _reshape_box(self, box, mask, w, grow: bool):
+        """The host side of a GROW (``grow``) or BUDGET event: grow the
+        axes whose faces active cells touch, then shrink loose axes.
+        Under a mesh the mask and w are gathered to every rank first and
+        re-sliced after.  Returns (box, mask, w), the same objects when the
+        box did not change."""
+        mesh = self.mesh
+        full_m = mask if mesh is None else mesh.gather(mask)
+        full_w = (w if mesh is None else mesh.gather(w)).to(torch.float64)
+        new_box, full_m, full_w = (self._grow_full(box, full_m, full_w)
+                                   if grow else (box, full_m, full_w))
+        # other axes may have gone loose (post-transient)
+        new_box, full_m, full_w = self._shrink_if_loose(new_box, full_m,
+                                                        full_w)
+        if new_box is box:
+            return box, mask, w
+        if mesh is not None:
+            full_m, full_w = mesh.local(full_m), mesh.local(full_w)
+        return new_box, full_m, full_w.to(self._dtype)
 
     def _dilate(self, box, mask, rounds=1):
         dilate = self._functions(box).dilate
@@ -343,12 +427,19 @@ class BoxCmeSolver:
             if beta == 0.0:
                 raise ValueError("initial probability vector is zero")
             carry = initial_carry(beta, abs(t), krytol, cfg.anorm, cfg.m_min)
-        ckpt_last = 0
+        self._ckpt = (checkpoint_path, int(checkpoint_every), [0])
 
         t_out = float(t)
         fsptol = float(fsp_tol)
         stats = SolverStats()
         hard_cap = cfg.mxstep if cfg.mxstep > 0 else 1_000_000
+
+        if cfg.fused_steps:
+            box, mask, w, carry = self._solve_fused(
+                box, mask, w, carry, t_out, fsptol, krytol, stats, hard_cap,
+                verbosity,
+            )
+            return self._finalize(box, mask, w, carry, stats, t_out, wall0)
 
         iteration = 0
         fns = self._functions(box)
@@ -361,20 +452,8 @@ class BoxCmeSolver:
 
             res = fns.step(mask, w, carry, t_out, fsptol, krytol)
             w, carry = res.w, res.carry
-            if int(carry.iflag) == 3:
-                raise RuntimeError(
-                    "local Krylov error stayed NaN through the bounded "
-                    "tau/5 retry (iflag=3) — basis/H numerically "
-                    "corrupted (inf/NaN propensity or overscaled expm); "
-                    "inspect the operator"
-                )
-            if int(carry.iflag) == 2:
-                raise RuntimeError(
-                    f"step rejected more than mxreject="
-                    f"{self.config.mxreject} times (IFLAG=2, "
-                    "KrylovSolver.f90:392-397); requested tolerance likely "
-                    "unattainable"
-                )
+            if int(carry.iflag) in (2, 3):
+                self._fail(carry)
             dropped = 0
 
             # ---- drop = clear mask bits (KrylovSolver.f90:509-511) -----
@@ -449,22 +528,146 @@ class BoxCmeSolver:
             stats.records.append(rec)
             if verbosity:
                 print(rec.format(), flush=True)
-            if checkpoint_path is not None and \
-                    int(carry.nstep) - ckpt_last >= checkpoint_every:
-                from .checkpoint import save_checkpoint
-
-                if self.mesh is None:
-                    mask_ck = mask.cpu().numpy()
-                    w_ck = w.to(torch.float64).cpu().numpy()
-                else:
-                    mask_ck, w_ck = mask, w
-                save_checkpoint(
-                    checkpoint_path, box, mask_ck, w_ck, carry, t_out,
-                    fsptol, krytol, mesh=self.mesh,
-                )
-                ckpt_last = int(carry.nstep)
+            self._maybe_checkpoint(box, mask, w, carry, t_out, fsptol,
+                                   krytol)
 
         return self._finalize(box, mask, w, carry, stats, t_out, wall0)
+
+    # ---------------------------------------------------------------- #
+
+    def _fail(self, carry):
+        """Raise the failure of a step with ``carry.iflag`` 3 or 2."""
+        if int(carry.iflag) == 3:
+            raise RuntimeError(
+                "local Krylov error stayed NaN through the bounded "
+                "tau/5 retry (iflag=3) — basis/H numerically "
+                "corrupted (inf/NaN propensity, overscaled expm, or "
+                "device-state corruption); inspect the operator"
+            )
+        raise RuntimeError(
+            f"step rejected more than mxreject="
+            f"{self.config.mxreject} times (IFLAG=2, "
+            "KrylovSolver.f90:392-397); requested tolerance likely "
+            "unattainable"
+        )
+
+    def _advance(self, box: BoxSpace, growable: tuple[int, ...]):
+        """The fused segment function of (box, growable), cached with the
+        segment budget: ``max_steps_per_call``, at most
+        ``checkpoint_every`` when checkpointing (the host must re-enter
+        that often to write a snapshot)."""
+        from .krylov.advance import make_advance_fn
+
+        budget = self.config.max_steps_per_call
+        if self._ckpt[0] is not None:
+            budget = min(budget, self._ckpt[1])
+        key = ("adv", box.log2, box.axis_of_species, growable, budget)
+        if key not in self._fns:
+            fns = self._functions(box)
+            self._fns[key] = make_advance_fn(
+                self.model, box, self._geometry_config(box), growable,
+                budget, self._dtype, self.device, mesh=self.mesh,
+                matvec=fns.matvec, diag=fns.diag, dilate=fns.dilate,
+                basis=self._basis,
+            )
+        return self._fns[key]
+
+    def _growable(self, box: BoxSpace) -> tuple[int, ...]:
+        """Species whose axis may still double (below the molecule cap and
+        the volume cap)."""
+        cfg = self.config
+        return tuple(
+            s for s in range(box.n_species)
+            if box.extents[s] < cfg.max_molecules + 1
+            and box.grow(s).volume <= cfg.max_box_volume
+        )
+
+    def _solve_fused(self, box, mask, w, carry, t_out, fsptol, krytol,
+                     stats, hard_cap, verbosity):
+        """Fused main loop: segments of krylov/advance.py; the host
+        re-enters on DONE, GROW, BUDGET and FAIL only."""
+        from .krylov.advance import (
+            EVENT_BUDGET,
+            EVENT_DONE,
+            EVENT_FAIL,
+            EVENT_GROW,
+            RECORD_FIELDS,
+        )
+
+        total_steps = 0
+        stalled_grows = 0
+        while True:
+            adv = self._advance(box, self._growable(box))
+            seg0 = time.perf_counter()
+            st = adv(w, mask, carry, t_out, fsptol, krytol)
+            w, mask, carry = st.w, st.mask, st.carry
+            stats.n_drops += st.n_drops
+            stats.n_expansions += st.n_expansions
+            nsteps = st.steps
+            total_steps += nsteps
+            # per-step wall inside a segment is not observed: each record
+            # carries the segment's wall over its attempted steps
+            seg_wall = (time.perf_counter() - seg0) / max(nsteps, 1)
+            for row in st.records:
+                rec = StepRecord(**dict(zip(RECORD_FIELDS, row)),
+                                 wall_s=seg_wall)
+                stats.records.append(rec)
+                if verbosity:
+                    print(rec.format(), flush=True)
+            self._maybe_checkpoint(box, mask, w, carry, t_out, fsptol,
+                                   krytol)
+            if st.event == EVENT_FAIL:
+                self._fail(carry)
+            if st.event == EVENT_DONE:
+                break
+            if total_steps > hard_cap:
+                raise RuntimeError(
+                    f"exceeded {hard_cap} attempted steps (IFLAG=1 analog)"
+                )
+            # any accepted progress clears the stall counter, whichever
+            # event ended the segment
+            if nsteps > 0:
+                stalled_grows = 0
+            if st.event == EVENT_GROW:
+                # growth that keeps accepting no step once integration has
+                # started means the criterion is unattainable (e.g. an f32
+                # budget exhausted by noise): fail instead of growing to
+                # the volume cap
+                stalled_grows = stalled_grows + 1 if nsteps == 0 else 0
+                if stalled_grows >= 16 and int(carry.nstep) >= 1:
+                    raise RuntimeError(
+                        f"{stalled_grows} consecutive state-space growths "
+                        "without an accepted step at t="
+                        f"{float(carry.t_now):g}; the requested fsp_tol is "
+                        "likely unattainable at this precision — use "
+                        "dtype='float64' or loosen fsp_tol (FSP criterion, "
+                        "KrylovSolver.f90:442-495)"
+                    )
+                new_box, mask, w = self._reshape_box(box, mask, w, grow=True)
+                if new_box is not box:
+                    box = new_box
+                    # one more dilation round inside the new box
+                    mask = self._dilate(box, mask)
+                # else: a touched face that cannot grow (the molecule cap)
+                # truncates, as MAXNUMBERMOLECULES does
+            elif st.event == EVENT_BUDGET:
+                box, mask, w = self._reshape_box(box, mask, w, grow=False)
+        return box, mask, w, carry
+
+    def _maybe_checkpoint(self, box, mask, w, carry, t_out, fsptol, krytol):
+        path, every, last = self._ckpt
+        if path is None or int(carry.nstep) - last[0] < every:
+            return
+        from .checkpoint import save_checkpoint
+
+        if self.mesh is None:
+            mask_ck = mask.cpu().numpy()
+            w_ck = w.to(torch.float64).cpu().numpy()
+        else:
+            mask_ck, w_ck = mask, w
+        save_checkpoint(path, box, mask_ck, w_ck, carry, t_out, fsptol,
+                        krytol, mesh=self.mesh)
+        last[0] = int(carry.nstep)
 
     def _lam_max(self, fns, mask, w) -> float:
         """Largest total propensity over mass-supported cells (the event

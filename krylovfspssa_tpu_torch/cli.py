@@ -305,8 +305,9 @@ def main(argv=None) -> int:
                     "process group torchrun describes (one process per "
                     "card); rank 0 prints")
     ps.add_argument("--no-fused", action="store_true",
-                    help="disable the fused device main loop (the port "
-                    "always runs the stepwise loop)")
+                    help="run the stepwise main loop (one attempted step "
+                    "at a time; the box never shrinks) instead of the "
+                    "default fused segments")
     ps.add_argument("--table-operator", choices=("auto", "ell", "pencil"),
                     help="table-backend operator representation (the "
                     "table backend is not ported yet)")

@@ -21,14 +21,13 @@ class SolverConfig:
 
     The PyTorch port accepts every field of the JAX package's config.  The
     box solve of this port reads the Krylov, step-control, FSP, box and
-    numerics fields.  It accepts and ignores: ``fused_steps`` (the port
-    always runs the stepwise loop, the same algorithm), ``use_pallas`` and
-    ``use_halo`` (TPU kernel pins; on CUDA the hand-written stencil kernel
-    is always taken), the table-backend fields (``table_operator``,
-    ``pencil_*``, ``init_capacity``, ``capacity_growth``,
-    ``warm_next_bucket``, ``ssa_max_steps``, ``seed``), ``debug_nans``,
-    ``max_steps_per_call`` and ``box_shrink_fraction`` (only the JAX fused
-    loop shrinks the box).
+    numerics fields, and the main-loop fields ``fused_steps``,
+    ``max_steps_per_call`` and ``box_shrink_fraction`` (boxsolver.py).  It
+    accepts and ignores: ``use_pallas`` and ``use_halo`` (TPU kernel pins;
+    on CUDA the hand-written stencil kernel is always taken), the
+    table-backend fields (``table_operator``, ``pencil_*``,
+    ``init_capacity``, ``capacity_growth``, ``warm_next_bucket``,
+    ``ssa_max_steps``, ``seed``) and ``debug_nans``.
     """
 
     # ---- Krylov subspace bounds (KrylovSolver.f90:47) -------------------
@@ -112,8 +111,9 @@ class SolverConfig:
     pencil_max_overcoverage: float = 8.0
 
     # ---- box backend ----------------------------------------------------
-    #: run the box backend's whole main loop inside one jitted while_loop
-    #: (host re-entry only on box growth); False = one device call per step
+    #: run the box backend's main loop in segments (krylov/advance.py:
+    #: the host re-enters on growth, budget, completion or failure, and
+    #: shrinks loose axes); False = the stepwise loop, one step at a time
     fused_steps: bool = True
     #: stencil SpMV kernel selection: "auto" uses the hand-tiled Pallas
     #: kernel (ops/pallas_stencil.py) when dtype is float32, the backend is
@@ -252,8 +252,8 @@ class SolverConfig:
     #: (KrylovSolver.f90:307); off by default for parity with the
     #: reference's silent-retry behaviour
     debug_nans: bool = False
-    #: take at most this many accepted steps inside one jitted device loop
-    #: before returning control to the host (bounds host-sync latency)
+    #: take at most this many attempted steps in one fused segment before
+    #: returning to the host (a BUDGET event: shrink check, checkpoint)
     max_steps_per_call: int = 1_000
     #: pre-compile the table backend's next capacity bucket in a daemon
     #: thread while stepping.  OFF by default: on the remote TPU backend a

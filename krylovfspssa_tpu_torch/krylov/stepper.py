@@ -175,6 +175,7 @@ def make_step_fn(
     config: SolverConfig,
     op_info: Callable,
     reduce: Callable | None = None,
+    basis: dict | None = None,
 ):
     """Build the single-attempted-step function.
 
@@ -189,6 +190,10 @@ def make_step_fn(
         of a row-sharded box: every sum over the cell axis (Arnoldi dots,
         FSP mass, norms) then runs over all ranks, and every rank takes the
         same branches.  None on one device.
+      basis: the dict that holds the Krylov basis.  Step functions given
+        the same dict share one basis, so that one geometry's basis is
+        freed when another's is allocated; by default each step function
+        keeps its own.
 
     Returns:
       step(op, w, carry, t_out, fsptol, krytol) -> StepResult.  The Krylov
@@ -216,14 +221,15 @@ def make_step_fn(
     else:
         expm_fn = expm_pade
 
-    basis: dict = {}
+    if basis is None:
+        basis = {}
 
     def total(t):
         """A float64 sum over the cell axis (over every rank's rows)."""
         return t if reduce is None else reduce(t)
 
     def get_basis(w):
-        key = (w.shape[0], w.dtype, w.device)
+        key = (MH, w.shape[0], w.dtype, w.device)
         if basis.get("key") != key:
             basis.clear()
             basis["key"] = key

@@ -68,7 +68,22 @@ DIRECT_LAUNCHES = 0
 HALO_LAUNCHES = 0
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parents[2] / "build" / "krylovfspssa_tpu_torch"
+
+
+def _build_dir(package: Path) -> Path:
+    """Where :func:`build` puts the library, for the package directory
+    ``package``: ``build/krylovfspssa_tpu_torch/`` of a checkout (the
+    directory holding ``pyproject.toml`` beside the package); for an
+    installed copy, ``krylovfspssa_tpu_torch/`` under ``$XDG_CACHE_HOME``
+    (default ``~/.cache``), since ``site-packages`` may not be writable."""
+    root = package.parent
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "krylovfspssa_tpu_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or Path.home() / ".cache"
+    return Path(cache) / "krylovfspssa_tpu_torch"
+
+
+_BUILD = _build_dir(_CSRC.parent)
 _LIB_NAME = "libkfs_kernels.so"
 _lib = None
 

@@ -29,12 +29,12 @@ class StepRecord:
     expanded: bool
     dropped: int
     #: host wall seconds attributed to this step.  Semantics differ by
-    #: path: the non-fused (one-dispatch-per-step) solvers record the
-    #: cumulative wall since solve start at the time the step returned;
-    #: the fused device loops cannot observe per-step wall and record the
-    #: SEGMENT wall amortized over the segment's attempted steps (the
-    #: first segment of a geometry additionally carries its jit compile).
-    #: Do not compare the two as like-for-like.
+    #: loop: the stepwise loop records the cumulative wall since the solve
+    #: started, at the time the step returned; the fused loop cannot
+    #: observe a step's wall inside a segment and records the SEGMENT's
+    #: wall divided by its attempted steps (the first segment of a
+    #: geometry also carries its operand build and, on CUDA, the kernel
+    #: build of the first solve).  Do not compare the two as like for like.
     wall_s: float = 0.0
 
     def format(self) -> str:

@@ -39,9 +39,12 @@ def _jax_run(case, tmp_path=None):
 
 
 def _port_run(case, **kw):
+    """The port's solve in the JAX side's loop (stepwise)."""
     return solve_cme_box(tlib.get_model(case["name"]), case["t"], case["x0"],
                          fsp_tol=case["fsp_tol"],
-                         krylov_tol=case["krylov_tol"], device="cpu", **kw)
+                         krylov_tol=case["krylov_tol"],
+                         config=SolverConfig(fused_steps=False), device="cpu",
+                         **kw)
 
 
 def _l1(a, b):
@@ -119,7 +122,7 @@ def test_jax_checkpoint_resumes_in_port(toggle_jax, ckpt_dir):
     with np.load(path) as z:
         assert 0 < int(z["carry_nstep"]) < j.stats.nstep
     r = solve_cme_box(tlib.toggle_file_model(), 0.0, resume_from=str(path),
-                      device="cpu")
+                      config=SolverConfig(fused_steps=False), device="cpu")
     assert r.t == TOGGLE["t"] and r.stats.t_final == pytest.approx(r.t)
     _assert_within_contract(j, r, TOGGLE["fsp_tol"])
 
@@ -139,8 +142,10 @@ def test_port_checkpoint_resumes_in_jax(toggle_jax, toggle_port, ckpt_dir):
 
 
 def test_growth_beyond_max_box_volume_raises():
-    """Box growth past max_box_volume raises OverflowError, as in JAX."""
-    cfg = SolverConfig(max_box_volume=1 << 10)
+    """Box growth past max_box_volume raises OverflowError in the stepwise
+    loop, as in JAX.  (The fused loop of both packages grows only axes
+    that may still grow and truncates at the others' faces.)"""
+    cfg = SolverConfig(max_box_volume=1 << 10, fused_steps=False)
     with pytest.raises(OverflowError, match="max_box_volume"):
         solve_cme_box(tlib.toggle_file_model(), 5.0, [[0, 0]],
                       config=cfg, device="cpu")

@@ -42,11 +42,12 @@ def _l1(a, b):
     return sum(abs(pa.get(k, 0.0) - pb.get(k, 0.0)) for k in set(pa) | set(pb))
 
 
-def _port_solve(model, case):
+def _port_solve(model, case, **config):
     return solve_cme_box(model, case["t"], case["x0"],
                          fsp_tol=case["fsp_tol"],
                          krylov_tol=case["krylov_tol"],
-                         config=SolverConfig(**case["config"]), device="cpu")
+                         config=SolverConfig(**case["config"], **config),
+                         device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -56,7 +57,7 @@ def test_custom_model_solve_matches_jax(name):
                 JConfig(fused_steps=False, **case["config"])).solve(
         case["t"], case["x0"], fsp_tol=case["fsp_tol"],
         krylov_tol=case["krylov_tol"])
-    t = _port_solve(tlib.get_model(name), case)
+    t = _port_solve(tlib.get_model(name), case, fused_steps=False)
     print(f"{name}: jax nstep {j.stats.nstep} nmult {j.stats.nmult} box "
           f"{j.box.volume} | port nstep {t.stats.nstep} nmult "
           f"{t.stats.nmult} box {t.box.volume}")

@@ -1,8 +1,10 @@
 """The port imports torch and numpy and never JAX: a fresh interpreter
-imports every module of the package (the sharded solve's ``parallel.*``
-and ``ops.halo`` by name), runs a small toggle solve on the CPU, once on
-one device and once on a mesh of one rank, and the CLI entry point, and
-finds no ``jax`` (nor the JAX package) in ``sys.modules``."""
+imports every module of the package (the sharded solve's ``parallel.*``,
+``ops.halo`` and the fused loop's ``krylov.advance`` by name), runs a small
+toggle solve on the CPU -- in the fused loop (the default) on one device,
+with segments of 3 steps, and on a mesh of one rank, and in the stepwise
+loop -- and the CLI entry point, and finds no ``jax`` (nor the JAX
+package) in ``sys.modules``."""
 
 import re
 import subprocess
@@ -24,15 +26,25 @@ mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
 import krylovfspssa_tpu_torch.ops.halo
+from krylovfspssa_tpu_torch.krylov.advance import RECORD_FIELDS, make_advance_fn
 import krylovfspssa_tpu_torch.parallel.dryrun
 import krylovfspssa_tpu_torch.parallel.multihost
 from krylovfspssa_tpu_torch.parallel import ShardMesh, make_mesh
-from krylovfspssa_tpu_torch import solve_cme_box
+from krylovfspssa_tpu_torch import BoxCmeSolver, SolverConfig, solve_cme_box
 from krylovfspssa_tpu_torch.cli import main
 from krylovfspssa_tpu_torch.models.library import toggle_file_model
 r = solve_cme_box(toggle_file_model(), 1.0, [[0, 0]], fsp_tol=1e-4,
                   krylov_tol=1e-8, device="cpu")
 assert r.stats.iflag == 0 and r.wsum >= 1 - 1e-4, r.wsum
+seg = BoxCmeSolver(toggle_file_model(), SolverConfig(max_steps_per_call=3),
+                   device="cpu")
+rs = seg.solve(1.0, [[0, 0]], fsp_tol=1e-4, krylov_tol=1e-8)
+assert any(k[0] == "adv" and k[-1] == 3 for k in seg._fns)
+assert rs.stats.iflag == 0 and rs.wsum >= 1 - 1e-4, rs.wsum
+rw = solve_cme_box(toggle_file_model(), 1.0, [[0, 0]], fsp_tol=1e-4,
+                   krylov_tol=1e-8, config=SolverConfig(fused_steps=False),
+                   device="cpu")
+assert rw.stats.nstep == r.stats.nstep and len(RECORD_FIELDS) == 11
 rm = solve_cme_box(toggle_file_model(), 1.0, [[0, 0]], fsp_tol=1e-4,
                    krylov_tol=1e-8, mesh=make_mesh("cpu"))
 assert isinstance(make_mesh("cpu"), ShardMesh)

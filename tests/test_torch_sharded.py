@@ -335,7 +335,8 @@ def toggle(tmp_path_factory):
                   (str(d / "jax.npz"), str(d / "port.npz")), **SPAWN)
     one = solve_cme_box(tlib.toggle_file_model(), TOGGLE["t"], TOGGLE["x0"],
                         fsp_tol=TOGGLE["fsp_tol"],
-                        krylov_tol=TOGGLE["krylov_tol"], device="cpu")
+                        krylov_tol=TOGGLE["krylov_tol"],
+                        config=SolverConfig(fused_steps=False), device="cpu")
     return dict(jsolver=jsolver, jax=jres, ranks=ranks, one=one, dir=d)
 
 
