@@ -4,10 +4,12 @@ NVIDIA GPU.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sharded-only    # several cards: [sharded] alone
+    python3 chip_smoke.py --table-flagship  # Goutsias t=300 alone
 
 Builds the hand-written stencil kernels from ``krylovfspssa_tpu_torch/csrc``
-with nvcc, drives the port's three solve paths through
-``solve_cme_box``/``BoxCmeSolver`` on ``cuda`` -- in the default fused main
+with nvcc (and the table backend's native hash with g++), drives the port's
+three box solve paths through ``solve_cme_box``/``BoxCmeSolver`` and its
+table path through ``CmeSolver`` on ``cuda`` -- in the default fused main
 loop (krylov/advance.py) unless a phase says otherwise -- then holds each
 kernel against its plain PyTorch version on the card at the shapes of those
 paths:
@@ -35,14 +37,23 @@ paths:
      with the cost of one all_reduce and one halo swap, and once more with
      rank 0 under torch.profiler (collective counts, the largest device
      items);
+  4b. ``[table]``: the table backend (``solve_cme``: a sorted state table
+     grown by SSA walks on the card and 1-step rounds, the gather-ELL
+     operator) on toggle t=1000 and Goutsias t=10, each through the gate
+     and within 2 x fsp_tol of the box solve of phase 2, and Goutsias t=30,
+     the first horizon the box cannot reach (2^24 cells); every operator
+     tensor, w and the active mask of every segment must be on the card.
+     This path launches no stencil kernel: its matvec is torch ops (the
+     JAX package computes it outside any Pallas kernel), counted by
+     ``ops/spmv.py``'s ``CALLS`` and timed in ``[ell]``;
   5. off the counted paths: ``[fused]``, the toggle t=1000 of phase 2 in
      the stepwise loop beside the fused one, and a birth-death model whose
      segments of 5 steps end on their budget and shrink the box, held
      against its closed form and against the same solve on the CPU (the
      first step where their records part is printed); ``[profile]``,
      device-busy share and device-to-host copies and syncs per attempted
-     step of toggle t=5 in both loops, Goutsias t=10, toggle_programmatic
-     t=5 and the library ge5d;
+     step of toggle t=5 in both loops (box and table backends), Goutsias
+     t=10, toggle_programmatic t=5 and the library ge5d;
   6. ``[kernels]``: ``box_stencil`` vs its plain version at three box
      geometries (the 2^22-cell Goutsias box, a 512x512 toggle box, a
      128-cell box smaller than one thread block) in float64 and float32,
@@ -60,7 +71,15 @@ paths:
      shards on one card (halos cut from the global vector), float64 and
      float32, and the concatenated shards vs ``box_stencil`` on the whole
      vector (bit for bit), with the times per shard beside
-     ``box_stencil``'s.
+     ``box_stencil``'s;
+  9. ``[ell]``: the table path's gather-ELL SpMV on the last operator and
+     final w of the Goutsias t=30 solve of 4b: its time, its bound (the
+     bytes it needs over 3.35 TB/s), one CSR SpMV of the same operator
+     and the SpMV calls on the table path.
+
+``--table-flagship`` runs the reference's Goutsias horizon, t=300, on the
+table backend alone, in the default fused loop (iflag 0 and wsum >= 1 -
+1e-6; counts and peak memory beside the JAX package's record).
 
 Every line of 6-8 gives the kernel's time, its plain version's, its bound
 (the bytes the function needs on this run's data over 3.35 TB/s: the
@@ -70,9 +89,9 @@ call that computes the same y (a CSR SpMV of the masked generator, built
 from the kernel's operands; the port never calls it).  Inputs of the
 kernels meet their contract ``supp(x) ⊆ mask``.
 
-Each solve path (2, 3 and 4) runs with the kernels' launch counts set to 0
-just before it and read just after (in each rank, for 4); these counts, and
-only these, are the kernels' launches.  Each phase
+Each solve path (2, 3, 4 and 4b) runs with the kernels' launch counts set
+to 0 just before it and read just after (in each rank, for 4); these
+counts, and only these, are the kernels' launches (4b must show none).  Each phase
 prints its own lines with its wall time.  Any failure raises and exits
 non-zero.  The last lines are a JSON record of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -701,19 +720,21 @@ def _device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def _profile(tag, args):
+def _profile(tag, args, solve=None):
     """Device-busy and host-synchronisation shares of one solve, and its
     device-to-host copies and synchronisations per attempted step (per
     step record).  The solve runs once plainly (its wall is the
     denominator) and once under torch.profiler (kernel times and the
     counts of host syncs and copies; the profiler slows the host, not the
-    kernels)."""
+    kernels).  ``solve`` is :func:`_solve` (the box backend) unless
+    given."""
     from torch.profiler import ProfilerActivity, profile
 
-    res, wall = _solve(*args)[1::2]
+    solve = solve or _solve
+    res, wall = solve(*args)[1::2]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_prof = _solve(*args)[3]
+        wall_prof = solve(*args)[3]
     events = prof.key_averages()
     dev_us = sum(_device_us(e) for e in events)
     syncs = [e for e in events if e.key == "cudaStreamSynchronize"]
@@ -762,6 +783,11 @@ def phase_profiles():
     _profile("goutsias t=10", (goutsias_model(), *GOUTSIAS))
     _profile("toggle_programmatic t=5",
              (toggle_programmatic_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
+    for loop, config in (("fused", None),
+                         ("stepwise", SolverConfig(fused_steps=False))):
+        _profile(f"table toggle t=5 {loop}",
+                 (toggle_file_model(), 5.0, [[0, 0]], 1e-4, 1e-10, config),
+                 _solve_table)
     _profile("ge5d-library t=%g" % GE5D_T,
              (ge5d_model(), GE5D_T, [[0, 0, 0, 0, 0]], 1e-4, 1e-8,
               SolverConfig(box_min_log2=2)))
@@ -1245,6 +1271,296 @@ def phase_sharded(one_rank):
     return total
 
 
+# ------------------------------------------------------------ table ----
+
+#: the Goutsias flagship's counts in the JAX package's table backend
+#: (flagship_r04.json: float64, fsp_tol 1e-6, krylov_tol 1e-8, t=300, the
+#: fused loop, chained over resumes: nstep, nmult, nexph and nreject are
+#: the whole solve's, n_expansions and n_drops its last call's); printed
+#: beside the port's, not asserted (the trajectory forks on the SSA stream
+#: and on the dot products' order)
+JAX_FLAGSHIP = dict(nstep=126, nmult=15925, nexph=703, nreject=178,
+                    n_expansions=12, n_drops=0, fsp_size=1950638,
+                    wsum=0.999998996193247)
+#: the horizon of the default [table] phase's third Goutsias solve: the
+#: first the box cannot reach (2^24 cells > max_box_volume at t=30)
+TABLE_GOUTSIAS_T = 30.0
+FLAGSHIP_T = 300.0
+
+
+def _spmv_calls() -> int:
+    from krylovfspssa_tpu_torch.ops import spmv
+
+    return spmv.CALLS
+
+
+@contextlib.contextmanager
+def _table_spy(solver):
+    """While active, count ``solver``'s fused segments (in
+    ``solver.segments``), keep its last operator (``solver.last_op``), and
+    check that every operator tensor, w and the active mask a segment gets
+    are on the card (the table path must not fall back to the CPU)."""
+    solver.segments = 0
+
+    def on_card(what, tensors):
+        off = [str(t.device) for t in tensors if not t.is_cuda]
+        if off:
+            raise AssertionError(f"table path: {what} off the card: {off}")
+
+    def advance_spy(inner):
+        def advance(capacity, budget):
+            adv = inner(capacity, budget)
+
+            def counted(op, w, active, *args):
+                solver.segments += 1
+                on_card("operator", op)
+                on_card("w and active", (w, active))
+                return adv(op, w, active, *args)
+            return counted
+        return advance
+
+    def operator_spy(inner):
+        def operator(table):
+            out = inner(table)
+            solver.last_op = out[0]
+            return out
+        return operator
+
+    with _spied(solver, "_advance", advance_spy), \
+            _spied(solver, "_operator", operator_spy):
+        yield
+
+
+@contextlib.contextmanager
+def _table_timers():
+    """While active, time each SSA expansion, 1-step round and operator
+    build of table solves, the card synchronised before and after each
+    (so not under [profile]); yields {"ssa", "onestep", "operator": list
+    of seconds}."""
+    import torch
+
+    from krylovfspssa_tpu_torch import solver as ts
+
+    times = {"ssa": [], "onestep": [], "operator": []}
+    names = {"ssa": "ssa_extend", "onestep": "onestep_extend",
+             "operator": "build_operator"}
+    saved = {k: getattr(ts, v) for k, v in names.items()}
+
+    def timed(key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = saved[key](*args, **kwargs)
+            torch.cuda.synchronize()
+            times[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    for k, v in names.items():
+        setattr(ts, v, timed(k))
+    try:
+        yield times
+    finally:
+        for k, v in names.items():
+            setattr(ts, v, saved[k])
+
+
+def _print_timers(tag, times):
+    parts = [f"{k} {1e3 * sum(v) / max(len(v), 1):.1f} ms x{len(v)} "
+             f"(total {sum(v):.2f} s)" for k, v in times.items()]
+    print(f"[table] {tag}: mean per call: {'; '.join(parts)} (1-step "
+          "counts the 5 start-up rounds)")
+
+
+def _solve_table(model, t, x0, fsp_tol, krylov_tol, config=None):
+    """One table-backend solve on the card; returns (solver, result, ELL
+    SpMV calls during the solve, wall seconds)."""
+    import torch
+
+    from krylovfspssa_tpu_torch import CmeSolver
+
+    solver = CmeSolver(model, config, device="cuda")
+    calls = _spmv_calls()
+    t0 = time.perf_counter()
+    with _table_spy(solver):
+        res = solver.solve(t, x0, fsp_tol=fsp_tol, krylov_tol=krylov_tol)
+    torch.cuda.synchronize()
+    return solver, res, _spmv_calls() - calls, time.perf_counter() - t0
+
+
+def _check_table(tag, solver, res, calls, fsp_tol):
+    """The gate of PERF.md §2 for a table solve: float64, iflag 0, finite
+    probabilities, wsum within fsp_tol, every matvec an ELL SpMV (``calls``
+    counts this run's)."""
+    import torch
+
+    s = res.stats
+    if solver.dtype != torch.float64:
+        raise AssertionError(f"{tag}: solve ran in {solver.dtype}")
+    if s.iflag != 0 or not np.all(np.isfinite(res.probabilities)):
+        raise AssertionError(f"{tag}: iflag {s.iflag} or non-finite values")
+    if not 1 - fsp_tol <= res.wsum <= 1 + fsp_tol:
+        raise AssertionError(f"{tag}: wsum {res.wsum} outside 1 +- "
+                             f"{fsp_tol:g}")
+    if calls < s.nmult:
+        raise AssertionError(f"{tag}: {calls} ELL SpMV calls < the "
+                             f"{s.nmult} matvecs of this run")
+
+
+def _print_table(tag, solver, res, calls, wall, peak_gib):
+    s = res.stats
+    print(f"[table] {tag} (fused, {solver.segments} segments) nstep "
+          f"{s.nstep} nmult {s.nmult} nreject {s.nreject} nexph {s.nexph} "
+          f"expansions {s.n_expansions} drops {s.n_drops} fsp "
+          f"{s.final_fsp_size} capacity {res.table.capacity} m_eff "
+          f"{solver._m_eff(res.table.capacity)} key words "
+          f"{res.table.encoder.n_words} wsum {res.wsum:.10f} ELL SpMV calls "
+          f"{calls} wall {wall:.2f} s peak device memory {peak_gib:.2f} GiB")
+
+
+def _table_solve(tag, model, scenario, box_result=None):
+    """A gated table solve of ``scenario`` (t, x0, fsp_tol, krylov_tol);
+    with ``box_result``, within 2 x fsp_tol of that box solve (L1 over the
+    union of supports).  Returns (solver, result, SpMV calls)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    with _table_timers() as times:
+        solver, res, calls, wall = _solve_table(model, *scenario)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _print_table(tag, solver, res, calls, wall, peak)
+    _print_timers(tag, times)
+    fsp_tol = scenario[2]
+    _check_table(tag, solver, res, calls, fsp_tol)
+    if box_result is not None:
+        l1 = _l1(res, box_result)
+        print(f"[table] {tag}: L1 to the box solve {l1:.3e} (limit "
+              f"{2 * fsp_tol:g}; box fsp {box_result.stats.final_fsp_size} "
+              f"in {box_result.box.volume} cells, table fsp "
+              f"{res.stats.final_fsp_size})")
+        if not l1 <= 2 * fsp_tol:
+            raise AssertionError(f"{tag}: table and box solves differ: L1 "
+                                 f"{l1:.3e}")
+    return solver, res, calls
+
+
+def phase_table(toggle_box, goutsias_box):
+    """[table]: the table backend (``solve_cme`` on the card, the fused
+    loop): toggle t=1000 and Goutsias t=10, each held against the box
+    solve of the same scenario, and Goutsias t=30, which the box cannot
+    reach.  Returns (the last solve's operator, its final w as a
+    capacity-sized vector on the card, its state count)."""
+    import torch
+
+    from krylovfspssa_tpu_torch import native
+    from krylovfspssa_tpu_torch.models.library import (
+        goutsias_model,
+        toggle_file_model,
+    )
+
+    t0 = time.perf_counter()
+    info = native.build()
+    print(f"[table] native hash built in {info.seconds:.2f} s -> "
+          f"{info.path}")
+    _table_solve("toggle t=1000", toggle_file_model(), TOGGLE, toggle_box)
+    _table_solve("goutsias t=10", goutsias_model(), GOUTSIAS, goutsias_box)
+    solver, res, _ = _table_solve(
+        f"goutsias t={TABLE_GOUTSIAS_T:g}", goutsias_model(),
+        (TABLE_GOUTSIAS_T, *GOUTSIAS[1:]))
+    print(f"[table] goutsias t={TABLE_GOUTSIAS_T:g}: "
+          f"{res.stats.final_fsp_size} states (the box would need 2^24 "
+          f"cells > max_box_volume 2^23); phase wall "
+          f"{time.perf_counter() - t0:.2f} s")
+    op = solver.last_op
+    x = torch.zeros(op.diag.shape[0], dtype=torch.float64, device="cuda")
+    x[: res.table.n] = torch.as_tensor(res.probabilities, device="cuda")
+    return op, x, res.table.n
+
+
+def phase_ell(op, x, n, calls):
+    """[ell]: the table path's gather-ELL SpMV (torch ops; the JAX package
+    computes it outside any Pallas kernel) on a solve's last operator and
+    final w: its time beside its bound (pred_idx, pred_prop and the
+    gathered x per entry, diag, x and y per row, rows up to n, at their own
+    item sizes, over 3.35 TB/s) and one CSR SpMV of the same operator."""
+    import torch
+
+    from krylovfspssa_tpu_torch.ops.spmv import spmv
+
+    R = op.pred_idx.shape[1]
+    y = spmv(op, x)
+    item = x.element_size()
+    nbytes = n * R * (op.pred_idx.element_size() + op.pred_prop.element_size()
+                      + item) + 3 * n * item
+    bound = _bound(nbytes, n * (2 * R + 2), x.dtype)
+    i = torch.arange(n, device="cuda")
+    pi = op.pred_idx[:n].long()
+    keep = pi >= 0
+    rows = [i, i.repeat_interleave(R)[keep.reshape(-1)]]
+    cols = [i, pi[keep]]
+    vals = [-op.diag[:n], op.pred_prop[:n][keep]]
+    cap = op.diag.shape[0]
+    matrix = _csr(rows, cols, vals, (cap, cap))
+    scale = float(torch.max(torch.abs(op.diag * x)))
+    library_ms = _library(matrix, x, y, F64_RTOL, scale)
+    ms = _time_ms(spmv, op, x)
+    print(f"[ell] ELL SpMV on the last operator ({n} rows of {cap}, R={R}, "
+          f"{str(x.dtype)[6:]}): {ms * 1e3:.1f} us per matvec, bound "
+          f"{bound[0] * 1e3:.1f} us ({bound[1]}; {nbytes / 1e6:.1f} MB; "
+          f"{100 * bound[0] / ms:.0f}% of it), CSR library "
+          f"{library_ms * 1e3:.1f} us; SpMV calls on the table path {calls}")
+    return dict(ms=ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=library_ms, calls=calls)
+
+
+def table_flagship(smi) -> int:
+    """``--table-flagship``: Goutsias t=300 (reference
+    examples/transcr6d.f90) on the table backend at the reference
+    tolerances, in float64, in the default fused loop.  Gate: iflag 0 and
+    wsum >= 1 - 1e-6; the counts and the peak device memory are printed
+    beside the JAX package's (flagship_r04.json)."""
+    import torch
+
+    from krylovfspssa_tpu_torch import CmeSolver, SolverConfig
+    from krylovfspssa_tpu_torch.models.library import goutsias_model
+
+    t0 = time.perf_counter()
+    solver = CmeSolver(goutsias_model(), SolverConfig(dtype="float64",
+                                                      verbosity=2),
+                       device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    calls = _spmv_calls()
+    with _table_spy(solver), _table_timers() as times:
+        res = solver.solve(FLAGSHIP_T, GOUTSIAS[1], fsp_tol=GOUTSIAS[2],
+                           krylov_tol=GOUTSIAS[3])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calls = _spmv_calls() - calls
+    s = res.stats
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    port = dict(nstep=s.nstep, nmult=s.nmult, nexph=s.nexph,
+                nreject=s.nreject, n_expansions=s.n_expansions,
+                n_drops=s.n_drops, fsp_size=s.final_fsp_size, wsum=res.wsum)
+    print(f"[flagship] goutsias t={FLAGSHIP_T:g}, {s.nstep} steps "
+          f"(fused, {solver.segments} segments), wall {wall:.1f} s, "
+          f"peak device memory {peak:.2f} GiB, ELL SpMV calls {calls}")
+    for k, v in port.items():
+        print(f"[flagship]   {k:13s} port {v}   JAX package "
+              f"(flagship_r04.json) {JAX_FLAGSHIP[k]}")
+    _print_timers("flagship", times)
+    _check_table("flagship", solver, res, calls, GOUTSIAS[2])
+    op = solver.last_op
+    x = torch.zeros(op.diag.shape[0], dtype=torch.float64, device="cuda")
+    x[: res.table.n] = torch.as_tensor(res.probabilities, device="cuda")
+    ell = phase_ell(op, x, res.table.n, calls)
+    if res.wsum > 1 + 1e-12:
+        raise AssertionError(f"flagship wsum {res.wsum} > 1")
+    print(f"[flagship] wsum {res.wsum:.10f} >= 1 - 1e-6, iflag 0: ok")
+    print(json.dumps({"flagship": dict(port, wall_s=wall, peak_gib=peak,
+                                       ell=ell, device=smi)}))
+    return 0
+
+
 def _path_launches(tag, run, kernels):
     """Run one solve path with the launch counts set to 0 just before it;
     the counts read just after must show every kernel of the path."""
@@ -1289,6 +1605,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="run only the one-rank Goutsias solve and "
                     "[sharded] (one NCCL rank per visible card, up to 4)")
+    ap.add_argument("--table-flagship", action="store_true",
+                    help="run only the Goutsias t=300 flagship on the table "
+                    "backend")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1298,6 +1617,8 @@ def main(argv=None) -> int:
     smi = phase_env()
     if args.sharded_only:
         return sharded_only(smi)
+    if args.table_flagship:
+        return table_flagship(smi)
     t_start = time.perf_counter()
     phase_small_solve()
 
@@ -1320,6 +1641,14 @@ def main(argv=None) -> int:
         "custom path", custom, ["direct_stencil", "box_stencil"])
     # path 3, the row-sharded solve: halo_stencil in every rank
     shl = phase_sharded(goutsias_one)
+    # path 4, the table backend: no stencil kernel; every matvec is the
+    # gather-ELL SpMV (torch ops), counted apart from the kernels
+    calls = _spmv_calls()
+    tab, (ell_op, ell_x, ell_n) = _path_launches(
+        "table path", lambda: phase_table(toggle_one, goutsias_one), [])
+    table_calls = _spmv_calls() - calls
+    if any(tab.values()):
+        raise AssertionError(f"table path launched a stencil kernel: {tab}")
     # off the counted paths: the other loop, a non-default budget, profiles
     phase_fused(toggle_one)
     phase_profiles()
@@ -1333,6 +1662,8 @@ def main(argv=None) -> int:
         launches["direct_stencil"], ge5d, ge5d_box,
         {"customprop": customprop, "ge5d": (ge5d, ge5d_box, ge5d_input)})
     halo = phase_halo(goutsias_one.box, launches["halo_stencil"])
+    phase_ell(ell_op, ell_x, ell_n, table_calls)
+    del ell_op, ell_x
 
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     sep_source = "krylovfspssa_tpu_torch/csrc/sep_stencil.cuh"

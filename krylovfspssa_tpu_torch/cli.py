@@ -2,11 +2,15 @@
 
 ``kfs-torch solve`` replicates ``test/TestSolverFromFile.f90``: load a model
 (``.input`` file or built-in library name), solve the CME to a final time
-on the box backend, print per-step statistics and the elapsed wall time,
-optionally save the final (states, probabilities) to ``.npz``.  It takes
-the flags of the JAX package's ``kfs solve`` plus ``--device`` (default
-``cuda``); the table backend is not ported yet and raises
-``NotImplementedError``.
+on the box backend (``--backend box``, the default) or the table backend
+(``--backend table``: a sorted state table with SSA expansion and the
+gather-ELL operator, solver.py), print per-step statistics and the elapsed
+wall time, optionally save the final (states, probabilities) to ``.npz``.
+It takes the flags of the JAX package's ``kfs solve`` plus ``--device``
+(default ``cuda``).  The table backend runs on one device: with
+``--devices`` or ``--multihost`` it raises ``NotImplementedError``
+(ROADMAP.md Queue A item 22), and ``--table-operator pencil`` too (item
+21).
 
 ``--devices N`` row-shards the solve over N ranks of this host, one
 process each (parallel/multihost.py ``spawn``): one card per rank with
@@ -148,16 +152,22 @@ def _spawn_ranks(args):
 def cmd_solve(args) -> int:
     from .boxsolver import solve_cme_box
 
-    if args.backend != "box":
+    if args.backend == "table" and (args.devices or args.multihost):
         raise NotImplementedError(
-            "the table backend is not ported yet (ROADMAP.md Queue A, "
-            "slice 6)"
+            "the row-sharded table backend is not ported yet (ROADMAP.md "
+            "Queue A item 22); --backend box runs row-sharded"
         )
     model = _load(args.model, args.params)
     x0 = _parse_state(args.x0, model.n_species)
 
     t0 = time.perf_counter()
-    if args.multihost:
+    if args.backend == "table":
+        from .solver import solve_cme
+
+        with _profiled(args.profile):
+            res = solve_cme(model, args.t, x0, device=args.device,
+                            **_solve_kwargs(args))
+    elif args.multihost:
         import torch
 
         from .parallel import multihost
@@ -284,7 +294,11 @@ def main(argv=None) -> int:
     ps.add_argument("--params", type=float, nargs="+",
                     help="override model parameters")
     ps.add_argument("--backend", choices=("box", "table"), default="box",
-                    help="state-space backend (only box is ported)")
+                    help="state-space backend: box (default) = a masked "
+                    "power-of-two box with the stencil kernels; table = a "
+                    "sorted state table grown by SSA walks and 1-step "
+                    "reachability, with the gather-ELL operator (one "
+                    "device)")
     ps.add_argument("--device", default="cuda",
                     help="torch device of the solve (default cuda; cpu "
                     "runs the plain PyTorch stencil)")
@@ -309,8 +323,10 @@ def main(argv=None) -> int:
                     "at a time; the box never shrinks) instead of the "
                     "default fused segments")
     ps.add_argument("--table-operator", choices=("auto", "ell", "pencil"),
-                    help="table-backend operator representation (the "
-                    "table backend is not ported yet)")
+                    help="table-backend operator representation: ell = "
+                    "the reference-format gather-ELL; auto (default) = "
+                    "ell on the CPU and the GPU; pencil (the TPU form) is "
+                    "not ported yet")
     ps.add_argument("-v", "--verbose", action="count", default=0)
     ps.add_argument("-o", "--output", help="save result to .npz")
     ps.add_argument("--json", action="store_true",

@@ -22,12 +22,15 @@ class SolverConfig:
     The PyTorch port accepts every field of the JAX package's config.  The
     box solve of this port reads the Krylov, step-control, FSP, box and
     numerics fields, and the main-loop fields ``fused_steps``,
-    ``max_steps_per_call`` and ``box_shrink_fraction`` (boxsolver.py).  It
-    accepts and ignores: ``use_pallas`` and ``use_halo`` (TPU kernel pins;
-    on CUDA the hand-written stencil kernel is always taken), the
-    table-backend fields (``table_operator``, ``pencil_*``,
-    ``init_capacity``, ``capacity_growth``, ``warm_next_bucket``,
-    ``ssa_max_steps``, ``seed``) and ``debug_nans``.
+    ``max_steps_per_call`` and ``box_shrink_fraction`` (boxsolver.py).
+    The table solve (solver.py) reads the same Krylov, step-control, FSP
+    and main-loop fields and ``max_states``, ``init_capacity``,
+    ``ssa_max_steps``, ``seed`` and ``table_operator`` ("pencil" raises:
+    not ported).  Both accept and ignore: ``use_pallas`` and ``use_halo``
+    (TPU kernel pins; on CUDA the hand-written stencil kernel is always
+    taken), ``pencil_*``, ``capacity_growth`` (buckets double, as in the
+    JAX package), ``warm_next_bucket`` (a background compile of the JAX
+    package) and ``debug_nans``.
     """
 
     # ---- Krylov subspace bounds (KrylovSolver.f90:47) -------------------

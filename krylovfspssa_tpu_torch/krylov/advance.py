@@ -1,4 +1,4 @@
-"""Fused multi-step loop of the box backend (PyTorch port of the box half of
+"""Fused multi-step loops of the box and table backends (PyTorch port of
 ``krylovfspssa_tpu/krylov/advance.py``).
 
 The JAX package runs the whole reference main loop (KrylovSolver.f90:206-550)
@@ -34,6 +34,12 @@ sum over the cell axis goes through ``mesh.sum``, the largest diagonal, the
 expansion's event rate and the touch flag through ``mesh.max`` (a flag is
 or-ed as a maximum of 0 and 1), so every rank reads the same numbers and
 takes the same branches.
+
+The table backend's loop (:func:`make_table_advance_fn`, the second half
+of this module) has the same structure on the gather-ELL operator: a drop
+deactivates rows of the ``active`` mask (the host compacts the table at
+the next expansion), and an expansion request ends the segment with
+EVENT_EXPAND, since SSA and 1-step expansion mutate the host table.
 """
 
 from __future__ import annotations
@@ -64,8 +70,8 @@ EVENT_BUDGET = 3
 #: solver failure surfaced from the stepper (carry.iflag != 0, e.g. the
 #: mxreject rejection budget was exhausted — KrylovSolver.f90:392-397)
 EVENT_FAIL = 4
-#: table backend: the stepper requested SSA expansion (not ported yet,
-#: ROADMAP.md slice 6; the value is the JAX package's)
+#: table backend: the stepper requested SSA expansion — a host-side state
+#: table mutation (SSA_EXTENDER + ONESTEP_EXTENDER + operator rebuild)
 EVENT_EXPAND = 5
 
 #: per-step record fields, in the order of the columns of ``records``
@@ -309,6 +315,211 @@ def make_advance_fn(
             event=EVENT_BUDGET if event == EVENT_NONE else event,
             steps=steps, records=records, n_drops=n_drops,
             n_expansions=n_exp,
+        )
+
+    return advance
+
+
+# ------------------------------------------------------ table backend ----
+
+
+class TableAdvanceState(NamedTuple):
+    """A segment's outcome on the gather-ELL table backend.
+
+    ``active`` is the soft-drop row mask: DROP_STATES deactivates rows (w
+    zeroed, the matvec output masked) instead of compacting the host
+    table; the host compacts at the next expansion.  ``t_ssa`` is the
+    last attempted step's SSA horizon, for the expansion that EVENT_EXPAND
+    asks for."""
+
+    w: torch.Tensor
+    active: torch.Tensor  # (cap,) bool soft-drop row mask
+    carry: StepCarry
+    event: int
+    #: attempted steps taken in the segment
+    steps: int
+    #: one tuple per attempted step, its values in RECORD_FIELDS order
+    records: list[tuple]
+    n_drops: int
+    t_ssa: float
+
+
+def make_masked_table_step(config: SolverConfig, basis: dict | None = None,
+                           seen: dict | None = None):
+    """Single attempted step on the table backend's (op, active) pair.
+
+    Shared by the fused loop below AND the stepwise loop (solver.py) so
+    that both run the same matvec, ``torch.where(active, spmv(op, x), 0)``,
+    with the active-row count as the cost model's n.  (The JAX package
+    found that a bare ``spmv`` in one loop and the masked form in the
+    other round differently at the ulp level — enough to flip a step size
+    and part the loops.)
+
+    ``op_info`` reads the active rows and the largest active diagonal
+    (the operator-norm proxy of the scaled breakdown threshold) in one
+    stacked read, and only for an (op, active) pair it has not seen:
+    ``seen`` holds the last pair's numbers, and a caller that already
+    knows them (the fused loop's drop) stores them there.  ``basis`` is
+    handed to :func:`make_step_fn`.
+    """
+    from ..ops.spmv import operator_nreactions, spmv
+
+    if seen is None:
+        seen = {}
+
+    def masked_matvec(oa):
+        op, active = oa
+
+        def mv(x):
+            return torch.where(active, spmv(op, x), 0.0)
+
+        return mv
+
+    def op_info(oa):
+        op, active = oa
+        if seen.get("op") is not op or seen.get("active") is not active:
+            n, dmax = torch.stack([
+                torch.sum(active).to(_F64),
+                torch.max(torch.where(active, op.diag, 0.0)).to(_F64),
+            ]).tolist()
+            seen.update(op=op, active=active, n=int(n), dmax=dmax)
+        return seen["n"], operator_nreactions(op), 2.0 * seen["dmax"]
+
+    return make_step_fn(masked_matvec, config, op_info, basis=basis)
+
+
+def make_table_advance_fn(
+    config: SolverConfig,
+    max_steps: int,
+    max_states: int | None = None,
+    basis: dict | None = None,
+):
+    """Fused multi-step loop of the table (gather-ELL) backend.
+
+    Builds ``advance(op, w, active, carry, t_out, fsptol, krytol)`` that
+    runs up to ``max_steps`` attempted steps and returns to the host on:
+
+      * t_out reached                                  (EVENT_DONE)
+      * SSA expansion requested by the FSP criterion   (EVENT_EXPAND — the
+        state-table mutation is host-side by design)
+      * stepper failure (iflag != 0)                   (EVENT_FAIL)
+      * ``max_steps`` elapsed                          (EVENT_BUDGET)
+
+    Probability-mass dropping (KrylovSolver.f90:509-511, DROP_STATES
+    StateSpace.f90:398-548) runs as a soft drop on the device: rows are
+    deactivated (w zeroed, matvec output masked), which is the same as
+    removing the state from the projection — inflow into a deactivated
+    row is discarded and its outflow vanishes with x=0.  The operator is
+    fixed between expansion events.  ``basis`` is handed to
+    :func:`make_step_fn` (the solver shares one across capacity buckets).
+    """
+    from ..ops.spmv import spmv
+
+    seen: dict = {}
+    step = make_masked_table_step(config, basis, seen)
+    inflow_guard = config.inflow_guard
+    drop_fraction = config.drop_fraction
+    levels = [config.droptol_start / 10.0 ** i for i in range(_N_LEVELS)]
+
+    def drop_inline(op, active, w, dsum, rate_budget, carry):
+        """DROP_STATES as row-mask arithmetic on the device: the largest
+        droptol level whose below-threshold mass fits in dsum, rows below
+        it deactivated unless the inflow guard keeps them, committed only
+        when more than drop_fraction of the active rows would go AND the
+        drop set's gross inflow rate fits ``rate_budget`` (the anti-thrash
+        gate, config.drop_rate_frac), or under memory pressure against
+        ``max_states``.  One stacked read brings back the outcome and the
+        next step's operator summary."""
+        n_active = seen["n"]
+        w64 = w.to(_F64)
+        inflow = torch.where(active, spmv(op, w), 0.0).to(_F64)
+        live = torch.where(active & (w64 > 0), w64, 0.0)
+        sums = torch.stack(
+            [torch.sum(torch.where(w64 < lev, live, 0.0)) for lev in levels])
+        lv = torch.tensor(levels, dtype=_F64, device=w.device)
+        ok = sums < dsum
+        droptol = torch.where(torch.any(ok),
+                              lv[torch.argmax(ok.to(torch.uint8))], lv[-1])
+        dmask = (w64 < droptol) & active & ~(inflow > inflow_guard)
+        count = torch.sum(dmask)
+        # anti-thrash gate on the GROSS inflow into the drop set: the
+        # per-state guard tests the net derivative (A w)_i, ~0 for a
+        # quasi-equilibrated boundary state that still carries throughput
+        gross_in = inflow + (op.diag * w).to(_F64)
+        loss_rate = torch.sum(
+            torch.where(dmask, torch.clamp_min(gross_in, 0.0), 0.0))
+        gate = loss_rate <= rate_budget
+        if max_states is not None and (
+                n_active >= config.drop_pressure_frac * max_states):
+            # memory-pressure escape (config.drop_pressure_frac)
+            gate = torch.ones_like(gate)
+        do = (count.to(_F64) > drop_fraction * n_active) & gate
+        gone = dmask & do
+        active_new = active & ~gone
+        w_new = torch.where(gone, 0.0, w)
+        out = torch.stack([
+            do.to(_F64),
+            count.to(_F64),
+            torch.sqrt(torch.sum((w_new * w_new).to(_F64))),
+            torch.sum(torch.where(dmask, w64, 0.0)),
+            torch.sum(active_new).to(_F64),
+            torch.max(torch.where(active_new, op.diag, 0.0)).to(_F64),
+        ]).tolist()
+        do, count, beta_new, dropped_mass, n_new, dmax = out
+        seen.update(op=op, active=active_new, n=int(n_new), dmax=dmax)
+        if not do:
+            return active_new, w_new, carry, 0
+        carry = carry._replace(
+            beta=np.float64(beta_new),
+            hump=np.maximum(carry.hump, beta_new),
+            spent=carry.spent + dropped_mass,
+        )
+        return active_new, w_new, carry, int(count)
+
+    def advance(op, w, active, carry: StepCarry, t_out, fsptol, krytol):
+        t_out_abs = abs(float(t_out))
+        # FSP budget rate fsp_tol/t_out (FERRORBOUND slope,
+        # KrylovSolver.f90:609-616) scaled by the anti-thrash fraction
+        rate_budget = config.drop_rate_frac * float(fsptol) / t_out_abs
+        records = []
+        steps = n_drops = 0
+        event = EVENT_NONE
+        res = None
+        while event == EVENT_NONE and steps < max_steps:
+            res = step((op, active), w, carry, t_out, fsptol, krytol)
+            w, carry = res.w, res.carry
+            dropped = 0
+
+            # ---- inline soft drop (KrylovSolver.f90:509-511) -----------
+            if res.advanced and res.dsum > 0.0:
+                active, w, carry, dropped = drop_inline(
+                    op, active, w, res.dsum, rate_budget, carry)
+                n_drops += dropped > 0
+
+            # ---- events ------------------------------------------------
+            failed = int(carry.iflag) != 0
+            done = float(carry.t_now) >= t_out_abs and not failed
+            if failed:
+                event = EVENT_FAIL
+            elif done:
+                event = EVENT_DONE
+            elif res.iexpand:
+                event = EVENT_EXPAND
+
+            # ---- record ------------------------------------------------
+            records.append((
+                int(carry.nstep), seen["n"], float(res.t_step),
+                float(carry.t_new), float(carry.t_now), int(res.m_used),
+                float(res.wsum), float(res.err_loc), bool(res.advanced),
+                bool(res.iexpand), dropped,
+            ))
+            steps += 1
+
+        return TableAdvanceState(
+            w=w, active=active, carry=carry,
+            event=EVENT_BUDGET if event == EVENT_NONE else event,
+            steps=steps, records=records, n_drops=n_drops,
+            t_ssa=float(res.t_ssa) if res else 0.0,
         )
 
     return advance

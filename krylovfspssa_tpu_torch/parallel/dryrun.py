@@ -1,6 +1,6 @@
 """Multi-rank dry run: a whole row-sharded box solve as a check (the box
 half of the JAX package's ``__graft_entry__.dryrun_multichip``; its table
-half waits for the table backend, ROADMAP.md slice 6).
+half waits for the row-sharded table backend, ROADMAP.md Queue A item 22).
 
     python -m krylovfspssa_tpu_torch.parallel.dryrun 4              # 4 cards
     python -m krylovfspssa_tpu_torch.parallel.dryrun 4 --device cpu

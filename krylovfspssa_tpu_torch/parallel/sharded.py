@@ -23,7 +23,8 @@ each collective; NCCL and CPU tensors go straight to the backend.
 
 The table-operator functions of the JAX module (``operator_shardings``,
 ``shard_operator``, ``sharded_matvec``, ``sharded_step_fn``) belong to the
-table backend and are not ported yet (ROADMAP.md slice 6).
+row-sharded table backend, which is not ported yet (ROADMAP.md Queue A
+item 22; the one-device table backend is ``solver.py``).
 """
 
 from __future__ import annotations

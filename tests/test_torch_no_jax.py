@@ -50,6 +50,17 @@ rm = solve_cme_box(toggle_file_model(), 1.0, [[0, 0]], fsp_tol=1e-4,
 assert isinstance(make_mesh("cpu"), ShardMesh)
 assert rm.stats.iflag == 0 and rm.box.shape == r.box.shape, rm.wsum
 assert main(["info", "goutsias"]) == 0
+import krylovfspssa_tpu_torch.native
+from krylovfspssa_tpu_torch import CmeSolver, SolveResult, solve_cme
+from krylovfspssa_tpu_torch.krylov.advance import make_table_advance_fn
+from krylovfspssa_tpu_torch.ops.spmv import spmv
+from krylovfspssa_tpu_torch.statespace import StateEncoder, StateTable
+for fused in (True, False):
+    rt = solve_cme(toggle_file_model(), 1.0, [[0, 0]], fsp_tol=1e-4,
+                   krylov_tol=1e-8, config=SolverConfig(fused_steps=fused),
+                   device="cpu")
+    assert isinstance(rt, SolveResult) and rt.stats.iflag == 0, rt.wsum
+    assert rt.table.host_index is not None and rt.wsum >= 1 - 1e-4
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "krylovfspssa_tpu.")))
 assert not bad, bad

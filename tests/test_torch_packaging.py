@@ -1,5 +1,6 @@
-"""Packaging of the port: a wheel carries every kernel source, and an
-installed copy builds its kernels in a writable directory.
+"""Packaging of the port: a wheel carries every kernel source (and the
+native hash's ``csrc/kfs_hash.cpp``), and an installed copy builds its
+kernels and the hash library in a writable directory.
 
 ``csrc/sep_stencil.cu`` includes ``csrc/sep_stencil.cuh``, so a wheel that
 lists only ``*.cu`` in its package data ships a kernel without its body,
@@ -14,6 +15,7 @@ from pathlib import Path
 
 import pytest
 
+from krylovfspssa_tpu_torch import native
 from krylovfspssa_tpu_torch.ops import stencil_cuda
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -37,7 +39,7 @@ def test_every_kernel_source_is_package_data(source):
 
 def test_kernel_sources_include_the_body():
     names = {p.name for p in (PACKAGE / "csrc").iterdir()}
-    assert {"sep_stencil.cu", "sep_stencil.cuh"} <= names
+    assert {"sep_stencil.cu", "sep_stencil.cuh", "kfs_hash.cpp"} <= names
 
 
 def test_checkout_builds_into_its_build_directory():
@@ -57,3 +59,11 @@ def test_installed_copy_builds_into_a_user_cache(tmp_path, monkeypatch):
     checkout = tmp_path / "krylovfspssa_tpu_torch"
     assert stencil_cuda._build_dir(checkout) == (
         tmp_path / "build" / "krylovfspssa_tpu_torch")
+
+
+def test_hash_library_builds_beside_the_kernels():
+    """The native hash compiles from the port's own copy of the source into
+    the kernels' build directory (no file of the JAX package is read)."""
+    assert native._SRC == PACKAGE / "csrc" / "kfs_hash.cpp"
+    assert native._BUILD == stencil_cuda._BUILD
+    assert native.build().path == native._BUILD / "libkfs_hash.so"
