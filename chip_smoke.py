@@ -3,7 +3,8 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sharded-only    # several cards: [sharded] alone
+    python3 chip_smoke.py --sharded-only    # several cards: the sharded
+                                            # paths alone
     python3 chip_smoke.py --table-flagship  # Goutsias t=300 alone
 
 Builds the hand-written stencil kernels from ``krylovfspssa_tpu_torch/csrc``
@@ -37,6 +38,13 @@ paths:
      with the cost of one all_reduce and one halo swap, and once more with
      rank 0 under torch.profiler (collective counts, the largest device
      items);
+     The ranks then run the same solve with ``use_halo=False``
+     (``[sharded-gather]``: halo_stencil with both halos cut from an
+     all_gather), which must take the one-rank solve's steps and matvecs;
+  4a. ``[sharded-direct]``: the library ge5d of phase 3 (a Python
+     callable, so ``direct_stencil`` on each rank's rows with halos) to
+     t=2, row-sharded the same way, held against the one-card solve
+     (same box, L1 <= 2 x fsp_tol);
   4b. ``[table]``: the table backend (``solve_cme``: a sorted state table
      grown by SSA walks on the card and 1-step rounds, the gather-ELL
      operator) on toggle t=1000 and Goutsias t=10, each through the gate
@@ -46,6 +54,11 @@ paths:
      This path launches no stencil kernel: its matvec is torch ops (the
      JAX package computes it outside any Pallas kernel), counted by
      ``ops/spmv.py``'s ``CALLS`` and timed in ``[ell]``;
+     ``[sharded-table]``: its Goutsias t=30 row-sharded over spawned ranks
+     (``CmeSolver(mesh=...)``), within 2 x fsp_tol of the one-rank solve,
+     and the sharded ELL matvec timed with its all_gather; ``[pencil]``:
+     the same solve with ``table_operator="pencil"`` against the ELL one,
+     and ``pencil_matvec`` timed against the ELL SpMV on its final states;
   5. off the counted paths: ``[fused]``, the toggle t=1000 of phase 2 in
      the stepwise loop beside the fused one, and a birth-death model whose
      segments of 5 steps end on their budget and shrink the box, held
@@ -72,6 +85,12 @@ paths:
      float32, and the concatenated shards vs ``box_stencil`` on the whole
      vector (bit for bit), with the times per shard beside
      ``box_stencil``'s;
+  8b. ``[direct-halo]``: ``direct_stencil`` on every row shard of the
+     2^23-cell box the ge5d solve reached, cut into 1, 2 and 4 shards on
+     one card (each shard's pack from its global cells, halos cut from the
+     global vector): kernel vs plain version per shard (float64 bit for
+     bit), the concatenated shards vs the whole-box kernel (bit for bit),
+     each shard's time, bound and CSR time;
   9. ``[ell]``: the table path's gather-ELL SpMV on the last operator and
      final w of the Goutsias t=30 solve of 4b: its time, its bound (the
      bytes it needs over 3.35 TB/s), one CSR SpMV of the same operator
@@ -79,7 +98,10 @@ paths:
 
 ``--table-flagship`` runs the reference's Goutsias horizon, t=300, on the
 table backend alone, in the default fused loop (iflag 0 and wsum >= 1 -
-1e-6; counts and peak memory beside the JAX package's record).
+1e-6; counts and peak memory beside the JAX package's record), and times
+the pencil matvec against the ELL SpMV on its final states.
+``--sharded-only`` runs [sharded], [sharded-direct] and [sharded-table]
+with the one-rank solves they are held against.
 
 Every line of 6-8 gives the kernel's time, its plain version's, its bound
 (the bytes the function needs on this run's data over 3.35 TB/s: the
@@ -89,9 +111,10 @@ call that computes the same y (a CSR SpMV of the masked generator, built
 from the kernel's operands; the port never calls it).  Inputs of the
 kernels meet their contract ``supp(x) ⊆ mask``.
 
-Each solve path (2, 3, 4 and 4b) runs with the kernels' launch counts set
-to 0 just before it and read just after (in each rank, for 4); these
-counts, and only these, are the kernels' launches (4b must show none).  Each phase
+Each solve path (2, 3, 4, 4a, 4b and the pencil) runs with the kernels'
+launch counts set to 0 just before it and read just after (in each rank,
+for the sharded ones); these counts, and only these, are the kernels'
+launches (the table paths must show none).  Each phase
 prints its own lines with its wall time.  Any failure raises and exits
 non-zero.  The last lines are a JSON record of the kernels, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.  Imports nothing of
@@ -1016,7 +1039,7 @@ def phase_ge5d():
     if not l1 <= 2 * fsp_tol:
         raise AssertionError(f"ge5d library and .input solves differ: "
                              f"L1 {l1:.3e}")
-    return lib, *captured
+    return lib, *captured, results[0]
 
 
 def phase_halo(solve_box, launches):
@@ -1108,6 +1131,112 @@ def _halo_case(name, model, box, dt, rtol, launches):
     return out
 
 
+def _direct_shard_csr(pack, mask):
+    """direct_stencil's masked generator of a row-shard pack as a CSR
+    matrix over the padded sources ``[left | x | right]`` (H cells each
+    side): the library yardstick of [direct-halo], y = A @ xpad."""
+    import torch
+
+    H, n = pack.halo, pack.rows
+    i = torch.nonzero(mask).squeeze(1)
+    rows, cols, vals = [i], [H + i], [-pack.diag[i]]
+    for k, off in enumerate(pack.meta.tolist()):
+        u = pack.rates[k][i]
+        j = i - off
+        inside = (j >= 0) & (j < n)
+        keep = (u != 0) & (~inside | mask[j.clamp(0, n - 1)])
+        rows.append(i[keep])
+        cols.append(H + j[keep])
+        vals.append(u[keep])
+    return _csr(rows, cols, vals, (n, n + 2 * H))
+
+
+def phase_direct_halo(model, box, launches):
+    """[direct-halo]: direct_stencil on every row shard of ``box`` (the
+    2^23-cell box the ge5d solve reached) cut into P = 1, 2 and 4 shards
+    on one card, each shard's pack built from its global cells and its
+    halos cut from the global masked x (every face of the box active):
+    kernel vs plain version per shard (bit for bit in float64, within
+    F32_RTOL in float32), and the concatenated shards vs the whole-box
+    direct_stencil, bit for bit in float64.  Each shard's time, bound
+    (fields counted: the model is a Python callable) and CSR time.
+    Returns {P: row} of float64 (worst error, median shard times, and
+    each shard's times)."""
+    import torch
+
+    from krylovfspssa_tpu_torch.ops import stencil_cuda as sc
+    from krylovfspssa_tpu_torch.ops.halo import halo_from_global
+
+    t0 = time.perf_counter()
+    out = {}
+    R = model.n_reactions
+    for dt, rtol in ((torch.float64, F64_RTOL), (torch.float32, F32_RTOL)):
+        mask, x = _face_inputs(box, dt)
+        whole_pack = sc.pack_direct_stencil(model, box, dt, "cuda")
+        whole = sc.direct_stencil(whole_pack, mask, x)
+        ms_whole = _time_ms(sc.direct_stencil, whole_pack, mask, x)
+        del whole_pack
+        scale = float(torch.max(torch.abs(whole)))
+        item = x.element_size()
+        for n_ranks in (1, 2, 4):
+            L = box.volume // n_ranks
+            shards, rows = [], []
+            for r in range(n_ranks):
+                z0 = r * L
+                pack = sc.pack_direct_stencil(model, box, dt, "cuda", z0, L)
+                halos = halo_from_global(x, z0, L, pack.halo)
+                args = (pack, mask[z0:z0 + L], x[z0:z0 + L], *halos)
+                y_k = sc.direct_stencil(*args)
+                y_p = sc._direct_stencil_plain(*args)
+                torch.cuda.synchronize()
+                active = int(args[1].sum())
+                nbytes = (_nbytes(args[1], args[2]) + active * item
+                          + R * active * item + _nbytes(*halos))
+                rows.append(_row(
+                    float(torch.max(torch.abs(y_k - y_p))),
+                    _time_ms(sc.direct_stencil, *args),
+                    _time_ms(sc._direct_stencil_plain, *args),
+                    _bound(nbytes, active * (3 * R + 1), dt),
+                    _library(_direct_shard_csr(pack, args[1]),
+                             torch.cat([halos[0], args[2], halos[1]]), y_k,
+                             rtol, scale),
+                    launches))
+                shards.append(y_k)
+                del pack
+            bitwise = torch.equal(torch.cat(shards), whole)
+            row = dict(rows[0], **{key: statistics.median(r[key]
+                                                          for r in rows)
+                                   for key in ("ms", "plain_ms", "bound_ms",
+                                               "library_ms")})
+            row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+            row["shard_ms"] = [r["ms"] for r in rows]
+            row["shard_bound_ms"] = [r["bound_ms"] for r in rows]
+            row["shard_library_ms"] = [r["library_ms"] for r in rows]
+            per = {key: " ".join("%.2f" % (r[key] * 1e3) for r in rows)
+                   for key in ("ms", "bound_ms", "library_ms")}
+            print(f"[direct-halo] ge5d {tuple(box.shape)} {str(dt)[6:]} "
+                  f"P={n_ranks} L={L} H={halos[0].numel()}: "
+                  f"max_abs_err={row['max_abs_err']:.3e} vs plain (limit "
+                  f"{rtol:g} x {scale:.3e}; float64 bit for bit), "
+                  f"concatenated shards equal the whole-box direct_stencil "
+                  f"bit for bit: {bitwise}; per shard kernel {per['ms']} us, "
+                  f"bound {per['bound_ms']} us, CSR library "
+                  f"{per['library_ms']} us; median {_us(row)}; whole-box "
+                  f"direct_stencil {ms_whole * 1e3:.2f} us")
+            exact = row["max_abs_err"] == 0.0 if dt == torch.float64 else (
+                row["max_abs_err"] <= rtol * scale)
+            if not (exact and (bitwise or dt != torch.float64)):
+                raise AssertionError(
+                    f"direct_stencil on shards disagrees at P={n_ranks} "
+                    f"{dt}: {row['max_abs_err']:.3e} vs plain; shards equal "
+                    f"the whole box: {bitwise}")
+            if dt == torch.float64:
+                out[n_ranks] = row
+        del mask, x, whole
+    print(f"[direct-halo] wall {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def _sharded_rank(mesh, args):
     """One rank of [sharded]: the Goutsias solve on this rank's rows, with
     this process's launch counts set to 0 just before it.  A t=1 solve
@@ -1116,7 +1245,7 @@ def _sharded_rank(mesh, args):
     a barrier starts every rank's clock together."""
     import torch
 
-    from krylovfspssa_tpu_torch import BoxCmeSolver
+    from krylovfspssa_tpu_torch import BoxCmeSolver, SolverConfig
     from krylovfspssa_tpu_torch.models.library import goutsias_model
 
     BoxCmeSolver(goutsias_model(), mesh=mesh).solve(
@@ -1132,10 +1261,25 @@ def _sharded_rank(mesh, args):
     wall = time.perf_counter() - t0
     launches = _launches()
     peak_gib = torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30
+    profile = _rank_profile(mesh, args, res.box)
+    # the same solve with use_halo=False: halo_stencil with both halos cut
+    # from an all_gather of the vector, counted in its own window
+    gathered = BoxCmeSolver(goutsias_model(),
+                            SolverConfig(use_halo=False), mesh=mesh)
+    mesh.barrier()
+    _reset_launches()
+    t0 = time.perf_counter()
+    r2 = gathered.solve(args[0], args[1], fsp_tol=args[2],
+                        krylov_tol=args[3])
+    torch.cuda.synchronize(mesh.device)
+    no_halo = dict(launches=_launches(), wall=time.perf_counter() - t0,
+                   stats=(r2.stats.iflag, r2.stats.nstep, r2.stats.nmult,
+                          r2.stats.nreject),
+                   result=r2 if mesh.rank == 0 else None)
     return dict(
         rank=mesh.rank, device=str(mesh.device), dtype=str(solver.dtype),
-        launches=launches, wall=wall, peak_gib=peak_gib,
-        profile=_rank_profile(mesh, args, res.box),
+        launches=launches, wall=wall, peak_gib=peak_gib, no_halo=no_halo,
+        profile=profile,
         records=[dataclasses.replace(r, wall_s=0.0)
                  for r in res.stats.records],
         result=res if mesh.rank == 0 else None,
@@ -1268,7 +1412,246 @@ def phase_sharded(one_rank):
     print(f"[sharded path] launches (all ranks): {total}")
     if total["halo_stencil"] == 0:
         raise AssertionError("sharded path: halo_stencil was never launched")
+    gathered = _check_no_halo(outs, one_rank)
+    return total, gathered
+
+
+def _check_no_halo(outs, one_rank):
+    """The [sharded] ranks' use_halo=False solve: halo_stencil launches >=
+    nmult in every rank and no other kernel, the one-rank solve's box and
+    step counts, equal records on every rank, L1 <= 2 x fsp_tol to the
+    one-rank solve.  Returns its launches summed over the ranks."""
+    fsp_tol = GOUTSIAS[2]
+    res = outs[0]["no_halo"]["result"]
+    one = one_rank.stats
+    for o in outs:
+        nh = o["no_halo"]
+        iflag, nstep, nmult, nreject = nh["stats"]
+        print(f"[sharded-gather] rank {o['rank']} use_halo=False: nstep "
+              f"{nstep} nmult {nmult} nreject {nreject} launches "
+              f"{nh['launches']} wall {nh['wall']:.2f} s (one rank: nstep "
+              f"{one.nstep} nmult {one.nmult})")
+        if iflag != 0 or nh["launches"]["halo_stencil"] < nmult:
+            raise AssertionError(f"use_halo=False rank {o['rank']}: iflag "
+                                 f"{iflag}, {nh['launches']} < nmult {nmult}")
+        if nh["launches"]["box_stencil"] or nh["launches"]["direct_stencil"]:
+            raise AssertionError(f"use_halo=False launched another kernel: "
+                                 f"{nh['launches']}")
+        if (nstep, nmult) != (one.nstep, one.nmult):
+            raise AssertionError(f"use_halo=False rank {o['rank']}: counts "
+                                 f"{(nstep, nmult)} vs one rank "
+                                 f"{(one.nstep, one.nmult)}")
+    l1 = _l1(res, one_rank)
+    print(f"[sharded-gather] wsum {res.wsum:.10f} box {res.box.shape}; L1 "
+          f"to the one-rank solve {l1:.3e} (limit {2 * fsp_tol:g})")
+    if res.box.shape != one_rank.box.shape or not l1 <= 2 * fsp_tol:
+        raise AssertionError(f"use_halo=False solve differs: box "
+                             f"{res.box.shape}, L1 {l1:.3e}")
+    return {k: sum(o["no_halo"]["launches"][k] for o in outs)
+            for k in outs[0]["launches"]}
+
+
+def _mesh_devices(tag, max_ranks=4):
+    """(devices, backend) of a spawned sharded phase: one card per rank
+    with NCCL when two or more cards are visible (up to ``max_ranks``),
+    else 2 gloo ranks on ``cuda:0``."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        devices = [f"cuda:{r}" for r in range(min(cards, max_ranks))]
+        backend = "nccl"
+    else:
+        devices, backend = ["cuda:0", "cuda:0"], "gloo"
+    print(f"[{tag}] {len(devices)} ranks, {backend}, on {devices} "
+          f"({cards} cards visible)")
+    return devices, backend
+
+
+def _ge5d_args():
+    from krylovfspssa_tpu_torch import SolverConfig
+
+    return (GE5D_T, [[0, 0, 0, 0, 0]], 1e-4, 1e-8,
+            SolverConfig(box_min_log2=2))
+
+
+def _sharded_direct_rank(mesh):
+    """One rank of [sharded-direct]: the library ge5d (a Python callable:
+    direct_stencil on this rank's rows) to t=2, launch counts set to 0
+    just before it and read just after."""
+    import torch
+
+    from krylovfspssa_tpu_torch import BoxCmeSolver
+    from krylovfspssa_tpu_torch.models.library import ge5d_model
+
+    t, x0, fsp_tol, krylov_tol, config = _ge5d_args()
+    solver = BoxCmeSolver(ge5d_model(), config, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    mesh.barrier()
+    _reset_launches()
+    t0 = time.perf_counter()
+    res = solver.solve(t, x0, fsp_tol=fsp_tol, krylov_tol=krylov_tol)
+    torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - t0
+    return dict(rank=mesh.rank, device=str(mesh.device),
+                dtype=str(solver.dtype), launches=_launches(), wall=wall,
+                peak_gib=torch.cuda.max_memory_allocated(mesh.device)
+                / 2 ** 30,
+                records=[dataclasses.replace(r, wall_s=0.0)
+                         for r in res.stats.records],
+                stats=(res.stats.iflag, res.stats.nstep, res.stats.nmult),
+                result=res if mesh.rank == 0 else None)
+
+
+def phase_sharded_direct(one_rank):
+    """[sharded-direct]: the library ge5d of phase 3 row-sharded through
+    ``solve_cme_box(..., mesh=...)``; held against the one-card solve
+    (same box, L1 <= 2 x fsp_tol).  Every rank launches direct_stencil at
+    least nmult times and no other kernel.  Returns the launches summed
+    over the ranks."""
+    from krylovfspssa_tpu_torch.parallel.multihost import spawn
+
+    t0 = time.perf_counter()
+    devices, backend = _mesh_devices("sharded-direct")
+    outs = spawn(_sharded_direct_rank, devices, backend=backend,
+                 timeout_s=600)
+    fsp_tol = _ge5d_args()[2]
+    for o in outs:
+        iflag, nstep, nmult = o["stats"]
+        print(f"[sharded-direct] rank {o['rank']} on {o['device']}: nstep "
+              f"{nstep} nmult {nmult} launches {o['launches']} wall "
+              f"{o['wall']:.2f} s peak device memory {o['peak_gib']:.2f} GiB")
+        if iflag != 0 or o["dtype"] != "torch.float64":
+            raise AssertionError(f"sharded ge5d rank {o['rank']}: iflag "
+                                 f"{iflag}, {o['dtype']}")
+        if o["launches"]["direct_stencil"] < nmult:
+            raise AssertionError(f"rank {o['rank']}: {o['launches']} "
+                                 f"direct_stencil launches < nmult {nmult}")
+        if o["launches"]["box_stencil"] or o["launches"]["halo_stencil"]:
+            raise AssertionError(f"rank {o['rank']} launched another "
+                                 f"kernel: {o['launches']}")
+        if o["records"] != outs[0]["records"]:
+            raise AssertionError(f"rank {o['rank']}'s step records differ")
+    res = outs[0]["result"]
+    l1 = _l1(res, one_rank)
+    print(f"[sharded-direct] ge5d t={GE5D_T:g}: wsum {res.wsum:.10f} box "
+          f"{res.box.shape} vol {res.box.volume} nstep {res.stats.nstep} "
+          f"nmult {res.stats.nmult}; one card: box {one_rank.box.shape} "
+          f"nstep {one_rank.stats.nstep} nmult {one_rank.stats.nmult}; L1 "
+          f"{l1:.3e} (limit {2 * fsp_tol:g}); wall "
+          f"{time.perf_counter() - t0:.2f} s with spawning")
+    if not (np.all(np.isfinite(res.probabilities))
+            and 1 - fsp_tol <= res.wsum <= 1 + fsp_tol):
+        raise AssertionError(f"sharded ge5d wsum {res.wsum}")
+    if res.box.shape != one_rank.box.shape or not l1 <= 2 * fsp_tol:
+        raise AssertionError(f"sharded ge5d differs from one card: box "
+                             f"{res.box.shape} vs {one_rank.box.shape}, L1 "
+                             f"{l1:.3e}")
+    total = {k: sum(o["launches"][k] for o in outs)
+             for k in outs[0]["launches"]}
+    print(f"[sharded-direct path] launches (all ranks): {total}")
     return total
+
+
+def _sharded_table_rank(mesh):
+    """One rank of [sharded-table]: table Goutsias t=30 on this rank's rows
+    (SpMV calls and stencil launches counted from 0 just before it), then
+    the sharded ELL matvec (its all_gather included) timed on the last
+    operator, back to back after a barrier."""
+    import torch
+
+    from krylovfspssa_tpu_torch import CmeSolver
+    from krylovfspssa_tpu_torch.models.library import goutsias_model
+    from krylovfspssa_tpu_torch.ops import spmv
+    from krylovfspssa_tpu_torch.parallel.sharded import sharded_matvec
+
+    solver = CmeSolver(goutsias_model(), mesh=mesh)
+    ops = []
+
+    def keep(inner):
+        def operator(table):
+            out = inner(table)
+            ops[:] = [out]
+            return out
+        return operator
+
+    mesh.barrier()
+    _reset_launches()
+    calls = spmv.CALLS
+    t0 = time.perf_counter()
+    with _spied(solver, "_operator", keep):
+        res = solver.solve(TABLE_GOUTSIAS_T, GOUTSIAS[1],
+                           fsp_tol=GOUTSIAS[2], krylov_tol=GOUTSIAS[3])
+    torch.cuda.synchronize(mesh.device)
+    wall = time.perf_counter() - t0
+    calls = spmv.CALLS - calls
+    launches = _launches()
+    op, vl = ops[0]
+    # the timed input: a vector on the last operator's rows (seeded)
+    x = vl.put(np.random.default_rng(0).random(op.n.item()))
+    mv = sharded_matvec(mesh)
+    on_card = all(t.is_cuda for t in op) and x.is_cuda
+    mv(op, x)
+    mesh.barrier()
+    n = 50
+    t1 = time.perf_counter()
+    for _ in range(n):
+        mv(op, x)
+    torch.cuda.synchronize(mesh.device)
+    mesh.barrier()
+    matvec_us = (time.perf_counter() - t1) / n * 1e6
+    return dict(rank=mesh.rank, device=str(mesh.device), wall=wall,
+                calls=calls, launches=launches, on_card=on_card,
+                rows=op.diag.shape[0], capacity=vl.cells,
+                matvec_us=matvec_us, dtype=str(solver.dtype),
+                stats=(res.stats.iflag, res.stats.nstep, res.stats.nmult,
+                       res.stats.n_expansions),
+                result=res if mesh.rank == 0 else None)
+
+
+def phase_sharded_table(one_rank):
+    """[sharded-table]: table Goutsias t=30 row-sharded through
+    ``CmeSolver(mesh=...)``, against the one-rank solve of [table]
+    (L1 <= 2 x fsp_tol); every rank makes at least nmult ELL SpMV calls
+    and launches no stencil kernel; the sharded ELL matvec's time per
+    call, all_gather included."""
+    from krylovfspssa_tpu_torch.parallel.multihost import spawn
+
+    t0 = time.perf_counter()
+    devices, backend = _mesh_devices("sharded-table")
+    outs = spawn(_sharded_table_rank, devices, backend=backend,
+                 timeout_s=600)
+    fsp_tol = GOUTSIAS[2]
+    for o in outs:
+        iflag, nstep, nmult, nexp = o["stats"]
+        print(f"[sharded-table] rank {o['rank']} on {o['device']}: nstep "
+              f"{nstep} nmult {nmult} expansions {nexp} ELL SpMV calls "
+              f"{o['calls']} launches {o['launches']} wall {o['wall']:.2f} "
+              f"s; sharded ELL matvec (all_gather included) "
+              f"{o['matvec_us']:.1f} us per call on {o['rows']} of "
+              f"{o['capacity']} rows")
+        if iflag != 0 or o["dtype"] != "torch.float64" or not o["on_card"]:
+            raise AssertionError(f"sharded table rank {o['rank']}: iflag "
+                                 f"{iflag}, {o['dtype']}, on card "
+                                 f"{o['on_card']}")
+        if o["calls"] < nmult or any(o["launches"].values()):
+            raise AssertionError(f"rank {o['rank']}: {o['calls']} ELL calls "
+                                 f"(nmult {nmult}), launches "
+                                 f"{o['launches']}")
+    res = outs[0]["result"]
+    l1 = _l1(res, one_rank)
+    print(f"[sharded-table] goutsias t={TABLE_GOUTSIAS_T:g}: wsum "
+          f"{res.wsum:.10f} fsp {res.stats.final_fsp_size}; one rank: nstep "
+          f"{one_rank.stats.nstep} nmult {one_rank.stats.nmult} fsp "
+          f"{one_rank.stats.final_fsp_size}; L1 {l1:.3e} (limit "
+          f"{2 * fsp_tol:g}); wall {time.perf_counter() - t0:.2f} s with "
+          "spawning")
+    if not (np.all(np.isfinite(res.probabilities))
+            and 1 - fsp_tol <= res.wsum <= 1 + fsp_tol and l1 <= 2 * fsp_tol):
+        raise AssertionError(f"sharded table solve: wsum {res.wsum}, L1 "
+                             f"{l1:.3e}")
+    return dict(matvec_us=[o["matvec_us"] for o in outs],
+                calls=sum(o["calls"] for o in outs))
 
 
 # ------------------------------------------------------------ table ----
@@ -1313,7 +1696,8 @@ def _table_spy(solver):
 
             def counted(op, w, active, *args):
                 solver.segments += 1
-                on_card("operator", op)
+                on_card("operator",
+                        op.tensors() if hasattr(op, "tensors") else op)
                 on_card("w and active", (w, active))
                 return adv(op, w, active, *args)
             return counted
@@ -1474,7 +1858,108 @@ def phase_table(toggle_box, goutsias_box):
     op = solver.last_op
     x = torch.zeros(op.diag.shape[0], dtype=torch.float64, device="cuda")
     x[: res.table.n] = torch.as_tensor(res.probabilities, device="cuda")
-    return op, x, res.table.n
+    return op, x, res.table.n, res
+
+
+def _pencil_bound(op, n_states):
+    """pencil_matvec's bound from what its operands need: per cell the
+    mask byte, D, R pred fields, x and y; the two source-row tables; per
+    member state -D*x and a multiply-add per reaction."""
+    item = op.diag.element_size()
+    cells = op.diag.shape[0]
+    R = op.pred_prop.shape[0]
+    nbytes = cells * (1 + item * (R + 3)) + _nbytes(op.src_a, op.src_b)
+    return _bound(nbytes, n_states * (2 * R + 2), op.diag.dtype)
+
+
+def _pencil_vs_ell(tag, solver, table, calls):
+    """pencil_matvec against the ELL spmv on one state set (``table``): the
+    same y at every state (1e-12 of the largest |D x|), their times, the
+    pencil's bound and a CSR SpMV of the same generator."""
+    import torch
+
+    from krylovfspssa_tpu_torch.ops.operator import build_operator
+    from krylovfspssa_tpu_torch.ops.pencil import pencil_matvec
+    from krylovfspssa_tpu_torch.ops.spmv import spmv
+
+    dev = torch.device("cuda")
+    pop, pvl = solver._pencil_operator(table)
+    eop = build_operator(
+        torch.as_tensor(table.states, device=dev),
+        torch.as_tensor(table.sorted_keys, device=dev),
+        torch.as_tensor(table.sorted_to_row, device=dev), table.n,
+        solver._props_fn, solver._stoich, solver.encoder, torch.float64)
+    n = table.n
+    w = np.random.default_rng(1).random(n)
+    xp = pvl.put(w)
+    xe = torch.zeros(table.capacity, dtype=torch.float64, device=dev)
+    xe[:n] = torch.as_tensor(w, device=dev)
+    slots = torch.as_tensor(pvl.layout.slot_of_state, device=dev)
+    yp = pencil_matvec(pop, xp)[slots]
+    ye = spmv(eop, xe)[:n]
+    scale = float(torch.max(torch.abs(eop.diag * xe)))
+    err = float(torch.max(torch.abs(yp - ye)))
+    ms_p = _time_ms(pencil_matvec, pop, xp)
+    ms_e = _time_ms(spmv, eop, xe)
+    bound = _pencil_bound(pop, n)
+    i = torch.arange(n, device=dev)
+    R = eop.pred_idx.shape[1]
+    pi = eop.pred_idx[:n].long()
+    keep = pi >= 0
+    matrix = _csr([i, i.repeat_interleave(R)[keep.reshape(-1)]],
+                  [i, pi[keep]], [-eop.diag[:n], eop.pred_prop[:n][keep]],
+                  (table.capacity, table.capacity))
+    library_ms = _library(matrix, xe, spmv(eop, xe), F64_RTOL, scale)
+    cells = pop.diag.shape[0]
+    print(f"[pencil] {tag}: {n} states in {pvl.layout.n_cells} pencil cells "
+          f"({pvl.layout.n_cells / n:.2f}x; {cells} with the rows bucket), "
+          f"lane species {pvl.layout.lane_species}; max_abs_err vs ELL "
+          f"{err:.3e} (limit {F64_RTOL:g} x {scale:.3e}); pencil_matvec "
+          f"{ms_p * 1e3:.1f} us, ELL spmv {ms_e * 1e3:.1f} us, pencil bound "
+          f"{bound[0] * 1e3:.1f} us ({bound[1]}; "
+          f"{100 * bound[0] / ms_p:.0f}% of it), CSR library "
+          f"{library_ms * 1e3:.1f} us; pencil calls {calls}")
+    if not err <= F64_RTOL * scale:
+        raise AssertionError(f"{tag}: pencil and ELL matvecs differ: "
+                             f"{err:.3e}")
+    return dict(ms=ms_p, ell_ms=ms_e, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=library_ms, max_abs_err=err, calls=calls,
+                cells=cells, states=n)
+
+
+def phase_pencil(ell_res):
+    """[pencil]: table Goutsias t=30 with table_operator="pencil" (the
+    JAX package's TPU operator; opt-in here) against the ELL solve of
+    [table] within 2 x fsp_tol, every matvec a pencil_matvec; then the
+    pencil matvec against the ELL spmv on its final state set."""
+    from krylovfspssa_tpu_torch import SolverConfig
+    from krylovfspssa_tpu_torch.models.library import goutsias_model
+    from krylovfspssa_tpu_torch.ops import pencil
+
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    calls = pencil.CALLS
+    solver, res, spmv_calls, wall = _solve_table(
+        goutsias_model(), TABLE_GOUTSIAS_T, *GOUTSIAS[1:],
+        config=SolverConfig(table_operator="pencil"))
+    calls = pencil.CALLS - calls
+    _print_table(f"pencil goutsias t={TABLE_GOUTSIAS_T:g}", solver, res,
+                 spmv_calls, wall, torch.cuda.max_memory_allocated() / 2 ** 30)
+    fsp_tol = GOUTSIAS[2]
+    _check_table("pencil", solver, res, calls, fsp_tol)
+    if type(solver.last_op).__name__ != "PencilOperator":
+        raise AssertionError(f"pencil solve built {type(solver.last_op)}")
+    l1 = _l1(res, ell_res)
+    print(f"[pencil] L1 to the ELL solve {l1:.3e} (limit {2 * fsp_tol:g}); "
+          f"pencil_matvec calls {calls} (nmult {res.stats.nmult})")
+    if not l1 <= 2 * fsp_tol:
+        raise AssertionError(f"pencil solve differs from ELL: L1 {l1:.3e}")
+    row = _pencil_vs_ell(f"goutsias t={TABLE_GOUTSIAS_T:g} final states",
+                         solver, res.table, calls)
+    print(f"[pencil] wall {time.perf_counter() - t0:.2f} s")
+    return row
 
 
 def phase_ell(op, x, n, calls):
@@ -1553,6 +2038,12 @@ def table_flagship(smi) -> int:
     x = torch.zeros(op.diag.shape[0], dtype=torch.float64, device="cuda")
     x[: res.table.n] = torch.as_tensor(res.probabilities, device="cuda")
     ell = phase_ell(op, x, res.table.n, calls)
+    del op, x
+    solver._pencil_lane = int(np.argmax(
+        res.table.states[: res.table.n].max(axis=0)))
+    pencil_row = _pencil_vs_ell(f"flagship t={FLAGSHIP_T:g} final states",
+                                solver, res.table, 0)
+    ell["pencil"] = pencil_row
     if res.wsum > 1 + 1e-12:
         raise AssertionError(f"flagship wsum {res.wsum} > 1")
     print(f"[flagship] wsum {res.wsum:.10f} >= 1 - 1e-6, iflag 0: ok")
@@ -1575,17 +2066,32 @@ def _path_launches(tag, run, kernels):
 
 
 def sharded_only(smi) -> int:
-    """``--sharded-only``: the row-sharded path and what it is held
+    """``--sharded-only``: the row-sharded paths and what they are held
     against, alone (for a machine with several cards): the one-rank
     Goutsias solve of phase 3, after a t=1 warm-up solve so that its wall
-    compares with the ranks' warm ones, then [sharded]."""
-    from krylovfspssa_tpu_torch.models.library import goutsias_model
+    compares with the ranks' warm ones, then [sharded] (with
+    [sharded-gather]); the one-card library ge5d, then [sharded-direct];
+    the one-rank table Goutsias t=30, then [sharded-table]."""
+    from krylovfspssa_tpu_torch.models.library import (
+        ge5d_model,
+        goutsias_model,
+    )
 
     t_start = time.perf_counter()
     _solve(goutsias_model(), 1.0, *GOUTSIAS[1:])
     _reset_launches()
     one = phase_goutsias()
     phase_sharded(one)
+    solver, ge5d_one, launches, wall = _solve(ge5d_model(), *_ge5d_args())
+    _print_solve("ge5d-library", solver, ge5d_one, launches, wall)
+    _check_solve("ge5d-library", solver, ge5d_one, launches, 1 - 1e-4,
+                 1 + 1e-4, kernel="direct_stencil")
+    del solver
+    phase_sharded_direct(ge5d_one)
+    _, table_one, _ = _table_solve(f"goutsias t={TABLE_GOUTSIAS_T:g}",
+                                   goutsias_model(),
+                                   (TABLE_GOUTSIAS_T, *GOUTSIAS[1:]))
+    phase_sharded_table(table_one)
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     print(smi)
     return 0
@@ -1603,8 +2109,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sharded-only", action="store_true",
-                    help="run only the one-rank Goutsias solve and "
-                    "[sharded] (one NCCL rank per visible card, up to 4)")
+                    help="run only the sharded paths ([sharded], "
+                    "[sharded-direct], [sharded-table]) and the one-rank "
+                    "solves they are held against (one NCCL rank per "
+                    "visible card, up to 4)")
     ap.add_argument("--table-flagship", action="store_true",
                     help="run only the Goutsias t=300 flagship on the table "
                     "backend")
@@ -1637,33 +2145,54 @@ def main(argv=None) -> int:
     def custom():
         return phase_customprop(), phase_ge5d()
 
-    cus, (customprop, (ge5d, ge5d_box, ge5d_input)) = _path_launches(
-        "custom path", custom, ["direct_stencil", "box_stencil"])
-    # path 3, the row-sharded solve: halo_stencil in every rank
-    shl = phase_sharded(goutsias_one)
+    cus, (customprop, (ge5d, ge5d_box, ge5d_input, ge5d_one)) = (
+        _path_launches("custom path", custom,
+                       ["direct_stencil", "box_stencil"]))
+    # path 3, the row-sharded solve: halo_stencil in every rank (and the
+    # same solve with use_halo=False, counted in its own window)
+    shl, gathered = phase_sharded(goutsias_one)
+    # path 3b, the row-sharded solve of a model that does not factor:
+    # direct_stencil on a row shard in every rank
+    sdl = phase_sharded_direct(ge5d_one)
     # path 4, the table backend: no stencil kernel; every matvec is the
     # gather-ELL SpMV (torch ops), counted apart from the kernels
     calls = _spmv_calls()
-    tab, (ell_op, ell_x, ell_n) = _path_launches(
+    tab, (ell_op, ell_x, ell_n, table_one) = _path_launches(
         "table path", lambda: phase_table(toggle_one, goutsias_one), [])
     table_calls = _spmv_calls() - calls
     if any(tab.values()):
         raise AssertionError(f"table path launched a stencil kernel: {tab}")
+    # path 4b, the row-sharded table (each rank checks that it launched no
+    # stencil kernel), and 4c, the pencil operator (torch ops, no kernel)
+    phase_sharded_table(table_one)
+    pen_tab, pencil_row = _path_launches(
+        "pencil path", lambda: phase_pencil(table_one), [])
+    if any(pen_tab.values()):
+        raise AssertionError(f"pencil path launched a stencil kernel: "
+                             f"{pen_tab}")
     # off the counted paths: the other loop, a non-default budget, profiles
     phase_fused(toggle_one)
     phase_profiles()
 
-    launches = {k: sep[k] + cus[k] + shl[k] for k in sep}
-    print(f"[paths] launches of the three solve paths: {launches}")
+    launches = {k: sep[k] + cus[k] + shl[k] + gathered[k] + sdl[k]
+                for k in sep}
+    print(f"[paths] launches of the solve paths: {launches}")
     box = phase_kernels(launches["box_stencil"], {
         "toggle": (toggle_file_model(), toggle_one),
         "goutsias": (goutsias_model(), goutsias_one)})
     direct = phase_direct_kernels(
         launches["direct_stencil"], ge5d, ge5d_box,
         {"customprop": customprop, "ge5d": (ge5d, ge5d_box, ge5d_input)})
+    direct_shards = phase_direct_halo(ge5d, ge5d_box,
+                                      launches["direct_stencil"])
+    direct["shards"] = {str(p): {k: row[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+        "shard_ms", "shard_bound_ms", "shard_library_ms")}
+        for p, row in direct_shards.items()}
     halo = phase_halo(goutsias_one.box, launches["halo_stencil"])
     phase_ell(ell_op, ell_x, ell_n, table_calls)
     del ell_op, ell_x
+    print(f"[pencil] summary: {json.dumps(pencil_row)}")
 
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")
     sep_source = "krylovfspssa_tpu_torch/csrc/sep_stencil.cuh"

@@ -4,20 +4,18 @@
 (``.input`` file or built-in library name), solve the CME to a final time
 on the box backend (``--backend box``, the default) or the table backend
 (``--backend table``: a sorted state table with SSA expansion and the
-gather-ELL operator, solver.py), print per-step statistics and the elapsed
-wall time, optionally save the final (states, probabilities) to ``.npz``.
-It takes the flags of the JAX package's ``kfs solve`` plus ``--device``
-(default ``cuda``).  The table backend runs on one device: with
-``--devices`` or ``--multihost`` it raises ``NotImplementedError``
-(ROADMAP.md Queue A item 22), and ``--table-operator pencil`` too (item
-21).
+gather-ELL or, with ``--table-operator pencil``, the pencil operator,
+solver.py), print per-step statistics and the elapsed wall time,
+optionally save the final (states, probabilities) to ``.npz``.  It takes
+the flags of the JAX package's ``kfs solve`` plus ``--device`` (default
+``cuda``).
 
-``--devices N`` row-shards the solve over N ranks of this host, one
-process each (parallel/multihost.py ``spawn``): one card per rank with
-NCCL, or gloo ranks on the CPU with ``--device cpu``.  ``--multihost``
-joins the process group that ``torchrun`` describes; every process then
-solves its rows on ``--device`` and rank 0 prints (without torchrun's
-variables it is a mesh of one rank on ``--device``).
+``--devices N`` row-shards the solve (either backend) over N ranks of
+this host, one process each (parallel/multihost.py ``spawn``): one card
+per rank with NCCL, or gloo ranks on the CPU with ``--device cpu``.
+``--multihost`` joins the process group that ``torchrun`` describes;
+every process then solves its rows on ``--device`` and rank 0 prints
+(without torchrun's variables it is a mesh of one rank on ``--device``).
 
 ``kfs-torch models`` lists the built-in model library (all seven models,
 custom-propensity ones included, solve on both devices); ``kfs-torch
@@ -115,17 +113,27 @@ def _solve_rank(mesh, args):
     """One rank of ``solve --devices N``: the sharded solve of this rank's
     rows.  Rank 0 returns the result (every rank holds the whole of it),
     the others None; only rank 0 prints steps and writes the profile."""
-    from .boxsolver import solve_cme_box
-
     model = _load(args.model, args.params, quiet=True)
     kwargs = _solve_kwargs(args)
     if mesh.rank:
         kwargs["verbosity"] = 0
     with _profiled(args.profile if mesh.rank == 0 else None):
-        res = solve_cme_box(model, args.t, _parse_state(args.x0,
-                                                        model.n_species),
-                            mesh=mesh, **kwargs)
+        res = _solver(args.backend)(
+            model, args.t, _parse_state(args.x0, model.n_species),
+            mesh=mesh, **kwargs)
     return res if mesh.rank == 0 else None
+
+
+def _solver(backend: str):
+    """The library entry point of ``--backend``: ``solve_cme_box`` or
+    ``solve_cme``, each taking (model, t, x0, mesh=..., device=...)."""
+    if backend == "table":
+        from .solver import solve_cme
+
+        return solve_cme
+    from .boxsolver import solve_cme_box
+
+    return solve_cme_box
 
 
 def _spawn_ranks(args):
@@ -150,24 +158,12 @@ def _spawn_ranks(args):
 
 
 def cmd_solve(args) -> int:
-    from .boxsolver import solve_cme_box
-
-    if args.backend == "table" and (args.devices or args.multihost):
-        raise NotImplementedError(
-            "the row-sharded table backend is not ported yet (ROADMAP.md "
-            "Queue A item 22); --backend box runs row-sharded"
-        )
     model = _load(args.model, args.params)
     x0 = _parse_state(args.x0, model.n_species)
+    solve = _solver(args.backend)
 
     t0 = time.perf_counter()
-    if args.backend == "table":
-        from .solver import solve_cme
-
-        with _profiled(args.profile):
-            res = solve_cme(model, args.t, x0, device=args.device,
-                            **_solve_kwargs(args))
-    elif args.multihost:
+    if args.multihost:
         import torch
 
         from .parallel import multihost
@@ -178,16 +174,15 @@ def cmd_solve(args) -> int:
         # without torchrun's variables is one rank there
         mesh = multihost.global_mesh(args.device)
         with _profiled(args.profile if mesh.rank == 0 else None):
-            res = solve_cme_box(model, args.t, x0, mesh=mesh,
-                                **_solve_kwargs(args))
+            res = solve(model, args.t, x0, mesh=mesh, **_solve_kwargs(args))
         if mesh.rank:
             return 0
     elif args.devices:
         res = _spawn_ranks(args)
     else:
         with _profiled(args.profile):
-            res = solve_cme_box(model, args.t, x0, device=args.device,
-                                **_solve_kwargs(args))
+            res = solve(model, args.t, x0, device=args.device,
+                        **_solve_kwargs(args))
     wall = time.perf_counter() - t0
 
     if args.log_steps:
@@ -297,8 +292,8 @@ def main(argv=None) -> int:
                     help="state-space backend: box (default) = a masked "
                     "power-of-two box with the stencil kernels; table = a "
                     "sorted state table grown by SSA walks and 1-step "
-                    "reachability, with the gather-ELL operator (one "
-                    "device)")
+                    "reachability, with the gather-ELL or pencil "
+                    "operator)")
     ps.add_argument("--device", default="cuda",
                     help="torch device of the solve (default cuda; cpu "
                     "runs the plain PyTorch stencil)")
@@ -325,8 +320,9 @@ def main(argv=None) -> int:
     ps.add_argument("--table-operator", choices=("auto", "ell", "pencil"),
                     help="table-backend operator representation: ell = "
                     "the reference-format gather-ELL; auto (default) = "
-                    "ell on the CPU and the GPU; pencil (the TPU form) is "
-                    "not ported yet")
+                    "ell on the CPU and the GPU; pencil = row gathers and "
+                    "lane shifts (the JAX package's TPU form; ell under "
+                    "--devices/--multihost)")
     ps.add_argument("-v", "--verbose", action="count", default=0)
     ps.add_argument("-o", "--output", help="save result to .npz")
     ps.add_argument("--json", action="store_true",

@@ -23,14 +23,19 @@ class SolverConfig:
     box solve of this port reads the Krylov, step-control, FSP, box and
     numerics fields, and the main-loop fields ``fused_steps``,
     ``max_steps_per_call`` and ``box_shrink_fraction`` (boxsolver.py).
+    Under a mesh the box solve reads ``use_halo`` (False: the halos are
+    cut from an all_gather of the vector instead of swapped with the
+    neighbours; the same hand-written kernel runs either way).
     The table solve (solver.py) reads the same Krylov, step-control, FSP
     and main-loop fields and ``max_states``, ``init_capacity``,
-    ``ssa_max_steps``, ``seed`` and ``table_operator`` ("pencil" raises:
-    not ported).  Both accept and ignore: ``use_pallas`` and ``use_halo``
-    (TPU kernel pins; on CUDA the hand-written stencil kernel is always
-    taken), ``pencil_*``, ``capacity_growth`` (buckets double, as in the
-    JAX package), ``warm_next_bucket`` (a background compile of the JAX
-    package) and ``debug_nans``.
+    ``ssa_max_steps``, ``seed``, ``table_operator`` and
+    ``pencil_lane_species`` (the pencil operator, ops/pencil.py).  Both
+    accept and ignore: ``use_pallas`` (TPU kernel pins; on CUDA the
+    hand-written stencil kernel is always taken),
+    ``pencil_max_overcoverage`` (read by the JAX package's "auto" on TPU
+    only), ``capacity_growth`` (buckets double, as in the JAX package),
+    ``warm_next_bucket`` (a background compile of the JAX package) and
+    ``debug_nans``.
     """
 
     # ---- Krylov subspace bounds (KrylovSolver.f90:47) -------------------
@@ -105,7 +110,9 @@ class SolverConfig:
     #: 600k states), "pencil" = the support-adapted row-gather +
     #: lane-shift form (ops/pencil.py; no per-element gathers, ~3x cell
     #: padding).  "auto" = pencil on TPU backends when the mesh is unset
-    #: and the layout stays efficient, else ell.
+    #: and the layout stays efficient, else ell: in this port (CPU and
+    #: CUDA) always ell.  Any other value builds the pencil, except under a
+    #: mesh, as in the JAX package.
     table_operator: str = "auto"
     #: lane species of the pencil layout (None = per-solve argmax extent)
     pencil_lane_species: int | None = None

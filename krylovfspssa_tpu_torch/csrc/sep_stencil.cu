@@ -1,8 +1,10 @@
 // C entry points of the stencil kernel body (sep_stencil.cuh), bound with
-// ctypes by ops/stencil_cuda.py: box_stencil launches the separable mode
-// with z0 = 0, rows = vol and no halos, halo_stencil with one rank's rows
-// and its two halos; direct_stencil launches the direct mode on the whole
-// box.
+// ctypes by ops/stencil_cuda.py.  Each mode takes the same geometry: the
+// rows [z0, z0 + rows) of the flat box and the hl cells of x on either side
+// of them (left, right).  box_stencil launches the separable mode with
+// z0 = 0, rows = vol and no halos, halo_stencil with one rank's rows and
+// its two halos; direct_stencil launches the direct mode in either of
+// those two ways.
 
 #include "sep_stencil.cuh"
 
@@ -35,22 +37,23 @@ int run(const void* x, const void* mask, const void* left, const void* right,
 }
 
 template <typename T>
-int run_direct(const void* x, const void* mask, const void* diag,
-               const void* rates, const void* meta, void* y, int vol,
+int run_direct(const void* x, const void* mask, const void* left,
+               const void* right, const void* diag, const void* rates,
+               const void* meta, void* y, int rows, int z0, int hl,
                int n_reactions, void* stream) {
   const kfs_sep::Args a{x,
                         static_cast<const uint8_t*>(mask),
-                        nullptr,
-                        nullptr,
+                        left,
+                        right,
                         diag,
                         nullptr,
                         nullptr,
                         rates,
                         static_cast<const int*>(meta),
                         y,
-                        vol,
-                        0,
-                        0,
+                        rows,
+                        z0,
+                        hl,
                         n_reactions,
                         n_reactions,
                         0,
@@ -86,19 +89,23 @@ int kfs_sep_stencil_f32(const void* x, const void* mask, const void* left,
                     stream);
 }
 
-// meta is off[R]; rates is U, (R, vol).
-int kfs_direct_stencil_f64(const void* x, const void* mask, const void* diag,
+// meta is off[R]; diag and rates are D and U, (R, rows), of the rows.
+int kfs_direct_stencil_f64(const void* x, const void* mask, const void* left,
+                           const void* right, const void* diag,
                            const void* rates, const void* meta, void* y,
-                           int vol, int n_reactions, void* stream) {
-  return run_direct<double>(x, mask, diag, rates, meta, y, vol, n_reactions,
-                            stream);
+                           int rows, int z0, int hl, int n_reactions,
+                           void* stream) {
+  return run_direct<double>(x, mask, left, right, diag, rates, meta, y, rows,
+                            z0, hl, n_reactions, stream);
 }
 
-int kfs_direct_stencil_f32(const void* x, const void* mask, const void* diag,
+int kfs_direct_stencil_f32(const void* x, const void* mask, const void* left,
+                           const void* right, const void* diag,
                            const void* rates, const void* meta, void* y,
-                           int vol, int n_reactions, void* stream) {
-  return run_direct<float>(x, mask, diag, rates, meta, y, vol, n_reactions,
-                           stream);
+                           int rows, int z0, int hl, int n_reactions,
+                           void* stream) {
+  return run_direct<float>(x, mask, left, right, diag, rates, meta, y, rows,
+                           z0, hl, n_reactions, stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,7 @@
 // modes, serves three wrappers: the separable mode the whole box
 // (box_stencil) and one rank's rows of a row-sharded box (halo_stencil),
 // the direct mode every model whose propensities do not factor per species
-// (direct_stencil).
+// (direct_stencil), on the whole box or on one rank's rows.
 //
 // Replaces the eight TPU kernels of krylovfspssa_tpu/ops/pallas_stencil.py.
 // Separable mode: make_pallas_stencil_matvec_v6 (B1, :1149), _v5 (B2,
@@ -24,9 +24,10 @@
 //                                                            (separable)
 //           = U[k, i]                                        (direct)
 //
-// box_stencil and direct_stencil are launches with z0 = 0, rows = vol and
-// hl = 0; halo_stencil passes the H = max_k |off_k| cells of masked x
-// before and after its rows (ops/halo.py).
+// box_stencil and a whole-box direct_stencil are launches with z0 = 0,
+// rows = vol and hl = 0; halo_stencil and a row-shard direct_stencil pass
+// the H = max_k |off_k| cells of masked x before and after their rows
+// (ops/halo.py).
 //
 // Separable mode: u_{k,s} is the shifted factor table of reaction k and
 // species s (zero where the source state leaves the box, so the zeros

@@ -345,7 +345,7 @@ class TableAdvanceState(NamedTuple):
 
 
 def make_masked_table_step(config: SolverConfig, basis: dict | None = None,
-                           seen: dict | None = None):
+                           seen: dict | None = None, mesh=None):
     """Single attempted step on the table backend's (op, active) pair.
 
     Shared by the fused loop below AND the stepwise loop (solver.py) so
@@ -360,32 +360,46 @@ def make_masked_table_step(config: SolverConfig, basis: dict | None = None,
     stacked read, and only for an (op, active) pair it has not seen:
     ``seen`` holds the last pair's numbers, and a caller that already
     knows them (the fused loop's drop) stores them there.  ``basis`` is
-    handed to :func:`make_step_fn`.
+    handed to :func:`make_step_fn`.  With ``mesh`` (parallel/sharded.py)
+    ``op``, ``active`` and the vectors are this rank's rows: the matvec is
+    ``sharded_matvec`` (x all-gathered) and every sum and maximum over the
+    rows runs over the ranks.
     """
     from ..ops.spmv import operator_nreactions, spmv
 
     if seen is None:
         seen = {}
+    if mesh is None:
+        matvec = spmv
+    else:
+        from ..parallel.sharded import sharded_matvec
+
+        matvec = sharded_matvec(mesh)
 
     def masked_matvec(oa):
         op, active = oa
 
         def mv(x):
-            return torch.where(active, spmv(op, x), 0.0)
+            return torch.where(active, matvec(op, x), 0.0)
 
         return mv
 
     def op_info(oa):
         op, active = oa
         if seen.get("op") is not op or seen.get("active") is not active:
-            n, dmax = torch.stack([
+            nd = torch.stack([
                 torch.sum(active).to(_F64),
                 torch.max(torch.where(active, op.diag, 0.0)).to(_F64),
-            ]).tolist()
+            ])
+            if mesh is not None:
+                nd = torch.stack([mesh.sum(nd[0]), mesh.max(nd[1])])
+            n, dmax = nd.tolist()
             seen.update(op=op, active=active, n=int(n), dmax=dmax)
         return seen["n"], operator_nreactions(op), 2.0 * seen["dmax"]
 
-    return make_step_fn(masked_matvec, config, op_info, basis=basis)
+    return make_step_fn(masked_matvec, config, op_info,
+                        reduce=None if mesh is None else mesh.sum,
+                        basis=basis)
 
 
 def make_table_advance_fn(
@@ -393,8 +407,9 @@ def make_table_advance_fn(
     max_steps: int,
     max_states: int | None = None,
     basis: dict | None = None,
+    mesh=None,
 ):
-    """Fused multi-step loop of the table (gather-ELL) backend.
+    """Fused multi-step loop of the table (gather-ELL or pencil) backend.
 
     Builds ``advance(op, w, active, carry, t_out, fsptol, krytol)`` that
     runs up to ``max_steps`` attempted steps and returns to the host on:
@@ -412,11 +427,21 @@ def make_table_advance_fn(
     row is discarded and its outflow vanishes with x=0.  The operator is
     fixed between expansion events.  ``basis`` is handed to
     :func:`make_step_fn` (the solver shares one across capacity buckets).
+    With ``mesh`` the operator, ``w`` and ``active`` are this rank's rows
+    (:func:`make_masked_table_step`); the drop's sums, counts and maxima
+    run over the ranks, so every rank takes the same decision.
     """
     from ..ops.spmv import spmv
 
     seen: dict = {}
-    step = make_masked_table_step(config, basis, seen)
+    step = make_masked_table_step(config, basis, seen, mesh)
+    if mesh is None:
+        matvec = spmv
+        total = top = (lambda t: t)
+    else:
+        from ..parallel.sharded import sharded_matvec
+
+        matvec, total, top = sharded_matvec(mesh), mesh.sum, mesh.max
     inflow_guard = config.inflow_guard
     drop_fraction = config.drop_fraction
     levels = [config.droptol_start / 10.0 ** i for i in range(_N_LEVELS)]
@@ -432,38 +457,41 @@ def make_table_advance_fn(
         next step's operator summary."""
         n_active = seen["n"]
         w64 = w.to(_F64)
-        inflow = torch.where(active, spmv(op, w), 0.0).to(_F64)
+        inflow = torch.where(active, matvec(op, w), 0.0).to(_F64)
         live = torch.where(active & (w64 > 0), w64, 0.0)
-        sums = torch.stack(
-            [torch.sum(torch.where(w64 < lev, live, 0.0)) for lev in levels])
+        sums = total(torch.stack(
+            [torch.sum(torch.where(w64 < lev, live, 0.0)) for lev in levels]))
         lv = torch.tensor(levels, dtype=_F64, device=w.device)
         ok = sums < dsum
         droptol = torch.where(torch.any(ok),
                               lv[torch.argmax(ok.to(torch.uint8))], lv[-1])
         dmask = (w64 < droptol) & active & ~(inflow > inflow_guard)
-        count = torch.sum(dmask)
         # anti-thrash gate on the GROSS inflow into the drop set: the
         # per-state guard tests the net derivative (A w)_i, ~0 for a
         # quasi-equilibrated boundary state that still carries throughput
         gross_in = inflow + (op.diag * w).to(_F64)
-        loss_rate = torch.sum(
-            torch.where(dmask, torch.clamp_min(gross_in, 0.0), 0.0))
+        count, loss_rate = total(torch.stack([
+            torch.sum(dmask).to(_F64),
+            torch.sum(torch.where(dmask, torch.clamp_min(gross_in, 0.0),
+                                  0.0)),
+        ]))
         gate = loss_rate <= rate_budget
         if max_states is not None and (
                 n_active >= config.drop_pressure_frac * max_states):
             # memory-pressure escape (config.drop_pressure_frac)
             gate = torch.ones_like(gate)
-        do = (count.to(_F64) > drop_fraction * n_active) & gate
+        do = (count > drop_fraction * n_active) & gate
         gone = dmask & do
         active_new = active & ~gone
         w_new = torch.where(gone, 0.0, w)
-        out = torch.stack([
-            do.to(_F64),
-            count.to(_F64),
-            torch.sqrt(torch.sum((w_new * w_new).to(_F64))),
+        beta_sq, dropped, n_new = total(torch.stack([
+            torch.sum((w_new * w_new).to(_F64)),
             torch.sum(torch.where(dmask, w64, 0.0)),
             torch.sum(active_new).to(_F64),
-            torch.max(torch.where(active_new, op.diag, 0.0)).to(_F64),
+        ]))
+        out = torch.stack([
+            do.to(_F64), count, torch.sqrt(beta_sq), dropped, n_new,
+            top(torch.max(torch.where(active_new, op.diag, 0.0)).to(_F64)),
         ]).tolist()
         do, count, beta_new, dropped_mass, n_new, dmax = out
         seen.update(op=op, active=active_new, n=int(n_new), dmax=dmax)

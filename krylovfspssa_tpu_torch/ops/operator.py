@@ -114,9 +114,14 @@ def build_operator(
     stoichiometry,
     encoder: StateEncoder,
     dtype=torch.float64,
+    rows: tuple[int, int] | None = None,
 ) -> CmeOperator:
     """Assemble the gather-form operator for the current state set, on the
-    device of ``states``.
+    device of ``states``: every row, or with ``rows=(z0, L)`` the rows
+    ``[z0, z0+L)`` of one rank of a row-sharded solve (``pred_idx`` and
+    ``succ_idx`` stay global row indices; ``n`` is the whole table's).  A
+    rank evaluates the propensities of every row, so its rows are the bits
+    of the same rows of the whole operator.
 
     Args:
       states: (cap, d) int32 state table (rows >= n are padding).
@@ -127,17 +132,23 @@ def build_operator(
       stoichiometry: (R, d) reaction state-changes.
       encoder: packed-key codec.
       dtype: the operator's float dtype (the solve's vector dtype).
+      rows: (z0, L), this rank's rows; all rows by default.
     """
-    cap, d = states.shape
+    cap_all, d = states.shape
     dev = states.device
     stoich = torch.as_tensor(np.asarray(stoichiometry), dtype=torch.int32,
                              device=dev)
     R = stoich.shape[0]
 
-    active = torch.arange(cap, device=dev) < int(n)
+    active = torch.arange(cap_all, device=dev) < int(n)
 
-    props = propensities_fn(states).to(dtype)
-    props = torch.where(active[:, None], props, 0.0)
+    # every row's propensities: a predecessor's may sit on another rank
+    props_all = propensities_fn(states).to(dtype)
+    props_all = torch.where(active[:, None], props_all, 0.0)
+    z0, cap = (0, cap_all) if rows is None else rows
+    states = states[z0:z0 + cap]
+    active = active[z0:z0 + cap]
+    props = props_all[z0:z0 + cap]
     diag = props.sum(dim=1)
 
     # successors: x + nu_k  (reference ADJ columns)
@@ -160,7 +171,8 @@ def build_operator(
 
     # incoming propensity a_k(pred) = props[pred_row, k]: already evaluated,
     # gathered (the reference's OFFDIAG(k, pred_col))
-    pred_prop = torch.gather(props, 0, torch.clamp_min(pred_idx, 0).long())
+    pred_prop = torch.gather(props_all, 0,
+                             torch.clamp_min(pred_idx, 0).long())
     pred_prop = torch.where(pred_idx >= 0, pred_prop, 0.0)
 
     return CmeOperator(

@@ -252,10 +252,11 @@ def select_stencil_matvec(model: Model, box: BoxSpace, config, dtype,
     * CPU: the plain PyTorch version (:func:`make_stencil_matvec`).
     * With ``mesh`` (a ``parallel.sharded.ShardMesh``, a mesh of one rank
       included): the halo-exchange matvec of ops/halo.py on this rank's
-      rows, through the kernel ``halo_stencil`` on CUDA and its plain
-      version on the CPU.  Models that do not factor, and
-      ``config.use_halo=False`` (the JAX package's GSPMD stencil), are not
-      ported under a mesh and raise ``NotImplementedError``.
+      rows, through the kernel ``halo_stencil`` (separable models) or
+      ``direct_stencil`` on a row shard (any other model) on CUDA and their
+      plain versions on the CPU.  ``config.use_halo=False`` keeps the
+      kernel and cuts the halos from an all_gather of the vector (the JAX
+      package's GSPMD-partitioned stencil moves whole shards too).
 
     ``config.use_pallas`` pins TPU kernel generations in the JAX package
     and is accepted and ignored here.
@@ -264,20 +265,12 @@ def select_stencil_matvec(model: Model, box: BoxSpace, config, dtype,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device!r} (cpu or cuda)")
     if mesh is not None:
-        if not getattr(config, "use_halo", True):
-            raise NotImplementedError(
-                "use_halo=False (the GSPMD-partitioned stencil) is not "
-                "ported to the sharded solve (ROADMAP.md Queue A, item 15)"
-            )
-        from .halo import make_halo_stencil_matvec
+        from .halo import make_direct_halo_matvec, make_halo_stencil_matvec
 
-        mv = make_halo_stencil_matvec(model, box, mesh, dtype)
+        use_halo = getattr(config, "use_halo", True)
+        mv = make_halo_stencil_matvec(model, box, mesh, dtype, use_halo)
         if mv is None:
-            raise NotImplementedError(
-                f"model {model.name!r} does not factor per species; its "
-                "sharded solve (the JAX package's GSPMD direct stencil) is "
-                "not ported yet (ROADMAP.md Queue A, item 14)"
-            )
+            mv = make_direct_halo_matvec(model, box, mesh, dtype, use_halo)
         return mv
     if dev.type == "cpu":
         return make_stencil_matvec(model, box, dtype, dev)

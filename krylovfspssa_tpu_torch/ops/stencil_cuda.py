@@ -14,10 +14,11 @@ compile-time modes.  Three wrappers launch it:
   box, reading the cells across the shard boundary from the two halos the
   ranks exchange (ops/halo.py).  It replaces ``make_pallas_local_matvec_v6``
   and ``make_pallas_local_matvec_v5``, Queue B rows B7 and B8;
-* ``direct_stencil`` (direct mode), on the whole box, for every model that
-  ``factorize_model`` refuses (coupled expressions, custom propensity
-  callables), from a stored diagonal and per-geometry rate fields indexed
-  by destination with validity baked in.  It replaces
+* ``direct_stencil`` (direct mode), on the whole box or on one rank's rows
+  with its two halos, for every model that ``factorize_model`` refuses
+  (coupled expressions, custom propensity callables), from a stored
+  diagonal and per-geometry rate fields indexed by destination with
+  validity baked in.  It replaces
   ``make_pallas_stencil_matvec_v2`` and ``make_pallas_stencil_matvec``
   (v1), Queue B rows B5 and B6.
 
@@ -153,7 +154,7 @@ def _library():
             fn.restype = ctypes.c_int
         for name in ("kfs_direct_stencil_f64", "kfs_direct_stencil_f32"):
             fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
@@ -491,19 +492,30 @@ def make_box_stencil_matvec(model: Model, box: BoxSpace, dtype=torch.float64,
 
 @dataclasses.dataclass(frozen=True)
 class DirectPack:
-    """``direct_stencil``'s per-geometry operands, on the solve's device:
-    (R + 1) * vol * itemsize bytes of device memory per geometry."""
+    """``direct_stencil``'s per-geometry operands for the rows
+    ``[z0, z0+rows)`` of one box geometry (the whole box by default), on
+    the rank's device: (R + 1) * rows * itemsize bytes of device memory."""
 
-    #: D = sum_k a_k, the total outflow rate per cell, summed in k order
-    #: from the propensity fields cast to dtype
+    #: D = sum_k a_k, the total outflow rate per cell of the rows, summed
+    #: in k order from the propensity fields cast to dtype
     diag: torch.Tensor
-    #: (R, vol): U_k[z] = valid_k(z) ? a_k(z - nu_k) : 0, each reaction's
-    #: rate at its destination, zero where the source leaves the box
+    #: (R, rows): U_k[z] = valid_k(z) ? a_k(z - nu_k) : 0, each reaction's
+    #: rate at its destination z = z0 + i, zero where the source leaves
+    #: the box
     rates: torch.Tensor
     #: int32 off[R], the flat offset of each reaction
     meta: torch.Tensor
     volume: int
     n_reactions: int
+    z0: int = 0
+    #: number of cells of the rows (``volume`` for the whole box)
+    rows: int | None = None
+    #: H = max_k |off_k|, the length of each halo a row shard takes
+    halo: int = 0
+
+    def __post_init__(self):
+        if self.rows is None:
+            object.__setattr__(self, "rows", self.volume)
 
     @property
     def dtype(self):
@@ -517,66 +529,131 @@ class DirectPack:
 _FIELD_CHUNK = 1 << 21
 
 
+def _field_window(evaluate, box: BoxSpace, k: int, lo: int, hi: int,
+                  out: torch.Tensor) -> None:
+    """Write a_k at the cells ``[lo, hi)`` into ``out`` (cast to its dtype).
+    The field is evaluated over the whole box's ``_FIELD_CHUNK`` grid, a
+    chunk at a time, and each chunk is evaluated whole: a cell's value is
+    then the bits the whole-box build gives it, whatever the window (an
+    elementwise op can round the tail of its input apart from the rest)."""
+    vol = box.volume
+    for c0 in range(lo - lo % _FIELD_CHUNK, hi, _FIELD_CHUNK):
+        n = min(_FIELD_CHUNK, vol - c0)
+        a, b = max(lo, c0), min(hi, c0 + n)
+        if a >= b:
+            continue
+        f = evaluate(_cells(box, out.device, (c0, n)), k)
+        out[a - lo:b - lo] = f[a - c0:b - c0]
+
+
 def pack_direct_stencil(model: Model, box: BoxSpace, dtype=torch.float64,
-                        device="cuda") -> DirectPack:
-    """Build ``direct_stencil``'s operands for one box geometry (any
-    model: the fields come from its expressions or its callable).  Each
-    propensity field a_k is evaluated in float64 (``_FIELD_CHUNK`` cells
-    at a time), cast to dtype, added to D and rolled into U_k before the
-    next one is built, so the build holds one field beside the pack."""
+                        device="cuda", z0: int = 0,
+                        rows: int | None = None) -> DirectPack:
+    """Build ``direct_stencil``'s operands for the rows ``[z0, z0+rows)``
+    of one box geometry (any model: the fields come from its expressions
+    or its callable; the whole box by default).  A rank's rate at z reads
+    the field at z - nu_k, which may lie on a neighbour's rows, so each
+    propensity field a_k is evaluated in float64 at the global cells
+    ``[z0-H, z0+rows+H)`` (``_FIELD_CHUNK`` cells at a time), cast to
+    dtype, added to D and shifted into U_k before the next one is built:
+    the build holds one window of a field beside the pack, and a shard's
+    pack is the bits of the same rows of the whole box's."""
+    from .halo import halo_width
+
     vol = _checked_volume(box)
+    rows = vol - z0 if rows is None else rows
+    if not (0 <= z0 and rows > 0 and z0 + rows <= vol):
+        raise ValueError(f"rows [{z0}, {z0 + rows}) outside a box of "
+                         f"{vol} cells")
     offsets = [int(o) for o in box.offsets]
+    H = halo_width(box)
     evaluate = make_propensity_evaluator(model, box, torch.float64, device)
-    chunks = [(c0, min(_FIELD_CHUNK, vol - c0))
-              for c0 in range(0, vol, _FIELD_CHUNK)]
-    diag = torch.zeros(vol, dtype=dtype, device=device)
-    rates = torch.empty((len(offsets), vol), dtype=dtype, device=device)
-    field = torch.empty(vol, dtype=dtype, device=device)
+    lo, hi = max(z0 - H, 0), min(z0 + rows + H, vol)
+    diag = torch.zeros(rows, dtype=dtype, device=device)
+    rates = torch.zeros((len(offsets), rows), dtype=dtype, device=device)
+    field = torch.empty(hi - lo, dtype=dtype, device=device)
+    local = [(c0, min(_FIELD_CHUNK, rows - c0))
+             for c0 in range(0, rows, _FIELD_CHUNK)]
     for k, off in enumerate(offsets):
-        for c0, n in chunks:
-            field[c0:c0 + n] = evaluate(_cells(box, device, (c0, n)), k)
-        diag += field
-        rates[k] = torch.roll(field, off)
-        for c0, n in chunks:
-            valid = _dest_valid(box, _cells(box, device, (c0, n)), k)
+        _field_window(evaluate, box, k, lo, hi, field)
+        diag += field[z0 - lo:z0 - lo + rows]
+        # U_k[z0 + i] = a_k(z0 + i - off) where that cell is in the box
+        i0 = min(max(lo + off - z0, 0), rows)
+        i1 = max(min(hi + off - z0, rows), i0)
+        rates[k, i0:i1] = field[z0 + i0 - off - lo:z0 + i1 - off - lo]
+        for c0, n in local:
+            valid = _dest_valid(box, _cells(box, device, (z0 + c0, n)), k)
             rates[k, c0:c0 + n].masked_fill_(~valid, 0)
     return DirectPack(
         diag=diag, rates=rates,
         meta=torch.tensor(offsets, dtype=torch.int32, device=device),
-        volume=vol, n_reactions=len(offsets),
+        volume=vol, n_reactions=len(offsets), z0=z0, rows=rows, halo=H,
     )
 
 
 def _direct_stencil_plain(pack: DirectPack, mask: torch.Tensor,
-                          x: torch.Tensor) -> torch.Tensor:
+                          x: torch.Tensor, left=None,
+                          right=None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch, from the same operands:
-    y = mask * (-D * xm + sum_k U_k * roll(xm, off_k)).  It masks x, so it
-    holds without the kernel's contract."""
+    y = mask * (-D * xm + sum_k U_k * src_k), src_k = roll(xm, off_k) on
+    the whole box, or xm shifted by off_k with the halos
+    ``[left | xm | right]`` on a row shard.  It masks x, so it holds
+    without the kernel's contract."""
     xm = torch.where(mask, x, 0)
     y = -pack.diag * xm
-    for k, off in enumerate(pack.meta.tolist()):
-        y = y + pack.rates[k] * torch.roll(xm, off)
+    offsets = pack.meta.tolist()
+    if left is None:
+        for k, off in enumerate(offsets):
+            y = y + pack.rates[k] * torch.roll(xm, off)
+    else:
+        H, n = pack.halo, pack.rows
+        xpad = torch.cat([left, xm, right])
+        for k, off in enumerate(offsets):
+            # source of local cell i is local cell i - off_k: padded index
+            # H + i - off_k
+            y = y + pack.rates[k] * xpad[H - off:H - off + n]
     return torch.where(mask, y, 0)
 
 
-def direct_stencil(pack: DirectPack, mask: torch.Tensor,
-                   x: torch.Tensor) -> torch.Tensor:
-    """y = A x on the masked box for any propensity.  The kernel takes
-    ``supp(x) ⊆ mask``, as :func:`box_stencil`.  CUDA tensors launch the
-    kernel (on the current stream, without synchronising); CPU tensors
+def direct_stencil(pack: DirectPack, mask: torch.Tensor, x: torch.Tensor,
+                   left: torch.Tensor | None = None,
+                   right: torch.Tensor | None = None) -> torch.Tensor:
+    """y = A x for any propensity: on the masked box, or with ``left`` and
+    ``right`` (the masked x at the H cells before and after the rows,
+    zero outside the box) on the rows of a row-shard pack.  The kernel
+    takes ``supp(x) ⊆ mask``, as :func:`box_stencil`.  CUDA tensors launch
+    the kernel (on the current stream, without synchronising); CPU tensors
     take the plain version."""
     global DIRECT_LAUNCHES
+    if (left is None) != (right is None):
+        raise ValueError("direct_stencil: pass both halos or neither")
+    if left is None and pack.rows != pack.volume:
+        raise ValueError("direct_stencil: the operands hold rows "
+                         f"[{pack.z0}, {pack.z0 + pack.rows}) of the box; "
+                         "pass their halos")
+    for name, h in (("left", left), ("right", right)):
+        if h is not None and (h.shape != (pack.halo,) or h.dtype != x.dtype
+                              or h.device != x.device):
+            raise ValueError(
+                f"direct_stencil: {name} halo {tuple(h.shape)} {h.dtype} on "
+                f"{h.device}, expected ({pack.halo},) {x.dtype} on "
+                f"{x.device}")
     if x.device.type == "cpu":
-        return _direct_stencil_plain(pack, mask, x)
-    _check_launch_args("direct_stencil", pack.volume, pack.rates, mask, x)
+        return _direct_stencil_plain(pack, mask, x, left, right)
+    _check_launch_args("direct_stencil", pack.rows, pack.rates, mask, x)
+    halos = (None, None, 0)
+    if left is not None:
+        if not (left.is_contiguous() and right.is_contiguous()):
+            raise ValueError("direct_stencil: halos must be contiguous")
+        halos = (left.data_ptr(), right.data_ptr(), pack.halo)
     lib = _library()
     fn = (lib.kfs_direct_stencil_f64 if x.dtype == torch.float64
           else lib.kfs_direct_stencil_f32)
     y = torch.empty_like(x)
     _launch("direct_stencil", fn, x.device, (
-        x.data_ptr(), mask.data_ptr(), pack.diag.data_ptr(),
-        pack.rates.data_ptr(), pack.meta.data_ptr(), y.data_ptr(),
-        pack.volume, pack.n_reactions,
+        x.data_ptr(), mask.data_ptr(), halos[0], halos[1],
+        pack.diag.data_ptr(), pack.rates.data_ptr(), pack.meta.data_ptr(),
+        y.data_ptr(), pack.rows, pack.z0, halos[2], pack.n_reactions,
     ))
     DIRECT_LAUNCHES += 1
     return y

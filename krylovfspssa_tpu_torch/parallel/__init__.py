@@ -1,8 +1,10 @@
-"""Multi-rank scaling: the mesh of ranks and the row-partitioned box solve.
+"""Multi-rank scaling: the mesh of ranks and the row-partitioned box and
+table solves.
 
 The state dimension (the flat cell axis of the masked box) is the single
 parallel axis of the Krylov-FSP math.  ``sharded.py`` holds the mesh (one
-process per rank over ``torch.distributed``) and the row-sharded box step;
+process per rank over ``torch.distributed``), the row-sharded box step and
+the row-sharded table operator, matvec and step;
 ``multihost.py`` starts and joins the processes; ``dryrun.py`` runs a
 whole sharded solve as a check.
 """
@@ -10,8 +12,12 @@ whole sharded solve as a check.
 __all__ = [
     "ShardMesh",
     "make_mesh",
+    "operator_shardings",
+    "shard_operator",
     "sharded_box_step_fn",
     "sharded_dilate_fn",
+    "sharded_matvec",
+    "sharded_step_fn",
 ]
 
 

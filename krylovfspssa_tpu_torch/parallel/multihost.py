@@ -23,8 +23,11 @@ Launch across hosts (one process per card)::
     # or, in a program started by torchrun:
     from krylovfspssa_tpu_torch.parallel import multihost
     multihost.initialize()
-    mesh = multihost.global_mesh()
+    mesh = multihost.global_mesh()          # this rank's card
     result = solve_cme_box(model, t, x0, mesh=mesh)   # every rank calls it
+
+    # on the CPU (gloo ranks), name it:
+    mesh = multihost.global_mesh("cpu")
 """
 
 from __future__ import annotations
@@ -73,10 +76,11 @@ def initialize(init_method: str | None = None,
     return dist.get_world_size() > 1
 
 
-def global_mesh(device=None) -> ShardMesh:
+def global_mesh(device="cuda") -> ShardMesh:
     """The 1-D mesh over every rank of the default group on this rank's
-    ``device`` (default: its current card when CUDA is available, else the
-    CPU); a mesh of one rank when no group was initialised."""
+    ``device`` (its current card unless the CPU is named; raises where
+    CUDA is not available); a mesh of one rank when no group was
+    initialised."""
     from .sharded import make_mesh
 
     return make_mesh(device)

@@ -1,5 +1,6 @@
-"""Row-partitioned box solves over ``torch.distributed`` (PyTorch port of the
-box half of ``krylovfspssa_tpu/parallel/sharded.py``).
+"""Row-partitioned solves over ``torch.distributed`` (PyTorch port of
+``krylovfspssa_tpu/parallel/sharded.py``): the box backend's masked box and
+the table backend's state rows.
 
 The state axis — the flat cell index of the masked box — is the one
 parallel axis of the Krylov-FSP math.  The JAX package partitions it over a
@@ -21,10 +22,13 @@ several ranks on one card.  gloo does not take CUDA tensors for every
 operation, so under gloo a CUDA tensor is staged through host memory for
 each collective; NCCL and CPU tensors go straight to the backend.
 
-The table-operator functions of the JAX module (``operator_shardings``,
-``shard_operator``, ``sharded_matvec``, ``sharded_step_fn``) belong to the
-row-sharded table backend, which is not ported yet (ROADMAP.md Queue A
-item 22; the one-device table backend is ``solver.py``).
+The table half (``operator_shardings``, ``shard_operator``,
+``sharded_matvec``, ``sharded_step_fn``) makes the JAX module's GSPMD
+layout explicit: rank r holds rows ``[r*cap/P, (r+1)*cap/P)`` of the
+table's vectors and of the gather-ELL operator, whose ``pred_idx`` stay
+global row indices; a matvec all-gathers x (what XLA inserts for the JAX
+``sharded_matvec``) and runs this rank's rows.  ``CmeSolver(mesh=...)``
+(solver.py) runs whole table solves on this layout.
 """
 
 from __future__ import annotations
@@ -119,6 +123,16 @@ class ShardMesh:
         backend takes on the mesh's device)."""
         float(self.sum(torch.zeros(1)))
 
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s tensor on every rank (each rank passes a tensor
+        of the same shape and dtype; the others' values are ignored)."""
+        t = torch.as_tensor(t, device=self.device).contiguous()
+        if self.size == 1:
+            return t
+        buf = self._stage(t)
+        dist.broadcast(buf, src, group=self.group)
+        return buf.to(self.device)
+
     def gather(self, t: torch.Tensor) -> torch.Tensor:
         """The full flat tensor from every rank's rows, on every rank."""
         if self.size == 1:
@@ -187,14 +201,78 @@ class ShardMesh:
         return got.get("left", left), got.get("right", right)
 
 
-def make_mesh(device=None) -> ShardMesh:
+def make_mesh(device="cuda") -> ShardMesh:
     """The 1-D mesh over the ranks of the default process group on this
-    rank's ``device``.  The default is the solve's: this rank's current
-    card when CUDA is available, else the CPU.  Without an initialised
-    process group it is a mesh of one rank."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    return ShardMesh(device)
+    rank's ``device``: its current card unless the CPU is named.  Raises
+    where CUDA is not available and the CPU was not asked for.  Without an
+    initialised process group it is a mesh of one rank."""
+    return ShardMesh("cuda" if device is None else device)
+
+
+# -------------------------------------------------------------- table ----
+
+
+def table_rows(mesh: ShardMesh, capacity: int) -> tuple[int, int]:
+    """(z0, L) of this rank's rows of a table of ``capacity`` rows."""
+    if capacity % mesh.size:
+        raise ValueError(
+            f"a table capacity of {capacity} rows does not divide over "
+            f"{mesh.size} ranks (the row-sharded table solve needs "
+            "capacity % ranks == 0; capacities are powers of two)"
+        )
+    n = capacity // mesh.size
+    return mesh.rank * n, n
+
+
+def operator_shardings(mesh: ShardMesh, capacity: int):
+    """A ``CmeOperator`` of this rank's row slices (the JAX function's
+    NamedShardings, made explicit): every per-row field is split by rows,
+    ``n`` is replicated (None)."""
+    from ..ops.operator import CmeOperator
+
+    z0, n = table_rows(mesh, capacity)
+    row = slice(z0, z0 + n)
+    return CmeOperator(diag=row, pred_idx=row, pred_prop=row, props=row,
+                       succ_idx=row, succ_legal=row, n=None)
+
+
+def shard_operator(op, mesh: ShardMesh):
+    """This rank's rows of a whole ``CmeOperator`` (on the mesh's
+    device).  The solver builds its rows directly
+    (``build_operator(rows=...)``); this is for an operator built whole."""
+    sh = operator_shardings(mesh, op.diag.shape[0])
+    return type(op)(*(
+        (t if s is None else t[s]).to(mesh.device, copy=True)
+        for t, s in zip(op, sh)
+    ))
+
+
+def sharded_matvec(mesh: ShardMesh):
+    """matvec(op_l, x_l) -> y_l: the SpMV of this rank's operator rows on
+    this rank's rows of x.  x is all-gathered first (one collective per
+    matvec), then ``ops/spmv.py``'s ``spmv`` runs the local rows."""
+    from ..ops.spmv import spmv
+
+    if mesh.size == 1:
+        return spmv
+    return lambda op, x: spmv(op, mesh.gather(x), x)
+
+
+def sharded_step_fn(mesh: ShardMesh, config, basis: dict | None = None):
+    """The full adaptive step (krylov/stepper.py) on this rank's rows of
+    the table: the sharded SpMV and every reduction over the mesh.
+    Returns step(op_l, w_l, carry, t_out, fsptol, krytol)."""
+    from ..krylov.stepper import make_step_fn
+    from ..ops.spmv import operator_nreactions
+
+    mv = sharded_matvec(mesh)
+
+    def op_info(op):
+        n, dmax = float(op.n), float(mesh.max(torch.max(op.diag)))
+        return int(n), operator_nreactions(op), 2.0 * dmax
+
+    return make_step_fn(lambda op: (lambda x: mv(op, x)), config, op_info,
+                        reduce=mesh.sum, basis=basis)
 
 
 # ---------------------------------------------------------------- box ----

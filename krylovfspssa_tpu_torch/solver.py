@@ -21,8 +21,9 @@ The state table is host numpy plus the native hash (statespace/table.py,
 native.py); the operator, the probability vector, the Krylov basis and the
 SSA walks live on the solve's device (``"cuda"`` by default, the CPU when
 asked for by name).  The operator is the gather-ELL form (ops/operator.py,
-ops/spmv.py), as the JAX package uses on CPU and GPU; the TPU's pencil
-form is not ported (ROADMAP.md Queue A item 21).  Capacities are
+ops/spmv.py), as the JAX package uses on CPU and GPU, or on request the
+pencil form (ops/pencil.py) that the JAX package picks on TPU.  With a
+mesh of ranks the solve is row-sharded (:class:`CmeSolver`).  Capacities are
 power-of-two buckets, so device buffers are re-allocated only on bucket
 growth; one Krylov basis is shared by every bucket's step function.
 
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import math
 import time
 from typing import Sequence
@@ -105,27 +107,76 @@ class SolveResult:
 
 class _EllVec:
     """Device-vector layout of the gather-ELL operator: vector index ==
-    table row, padded to the capacity bucket."""
+    table row, padded to the capacity bucket.  Under ``mesh`` the device
+    vectors are this rank's rows ``[z0, z0+L)`` of the capacity, and
+    ``take``/``keep_rows`` gather the whole vector on every rank."""
 
-    def __init__(self, table: StateTable, device, dtype):
+    def __init__(self, table: StateTable, device, dtype, mesh=None):
         self._table = table
         self._device = device
         self._dtype = dtype
+        self._mesh = mesh
         self.cells = table.capacity
+        if mesh is None:
+            self._rows = (0, self.cells)
+        else:
+            from .parallel.sharded import table_rows
+
+            self._rows = table_rows(mesh, self.cells)
+
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self._mesh is None else self._mesh.gather(t)
 
     def put(self, w_rows: np.ndarray) -> torch.Tensor:
         out = np.zeros(self.cells, dtype=np.float64)
         out[: min(len(w_rows), self.cells)] = w_rows[: self.cells]
+        z0, n = self._rows
+        return torch.as_tensor(out[z0:z0 + n], device=self._device).to(
+            self._dtype)
+
+    def take(self, w: torch.Tensor) -> np.ndarray:
+        return self._whole(w)[: self._table.n].to(_F64).cpu().numpy()
+
+    def active0(self) -> torch.Tensor:
+        z0, n = self._rows
+        return torch.arange(z0, z0 + n, device=self._device) < self._table.n
+
+    def keep_rows(self, cells: torch.Tensor) -> np.ndarray:
+        return self._whole(cells)[: self._table.n].cpu().numpy()
+
+
+class _PencilVec:
+    """Device-vector layout of the pencil operator: vector index == pencil
+    cell (rows x 128 lanes), padded to the rows bucket (ops/pencil.py)."""
+
+    def __init__(self, layout, mask: np.ndarray, device, dtype):
+        self.layout = layout
+        self.cells = len(mask)
+        self._device = device
+        self._dtype = dtype
+        self._mask = torch.as_tensor(mask, device=device)
+
+    def put(self, w_rows: np.ndarray) -> torch.Tensor:
+        out = np.zeros(self.cells, dtype=np.float64)
+        out[self.layout.slot_of_state[: len(w_rows)]] = w_rows
         return torch.as_tensor(out, device=self._device).to(self._dtype)
 
     def take(self, w: torch.Tensor) -> np.ndarray:
-        return w[: self._table.n].to(_F64).cpu().numpy()
+        return w.to(_F64).cpu().numpy()[self.layout.slot_of_state]
 
     def active0(self) -> torch.Tensor:
-        return torch.arange(self.cells, device=self._device) < self._table.n
+        return self._mask.clone()
 
     def keep_rows(self, cells: torch.Tensor) -> np.ndarray:
-        return cells[: self._table.n].cpu().numpy()
+        return cells.cpu().numpy()[self.layout.slot_of_state]
+
+
+def _same_layout(vl, vl_new) -> bool:
+    """Whether a vector of ``vl`` is one of ``vl_new`` as it stands: an
+    ELL append within the same bucket (appended rows read as zero
+    padding).  A pencil rebuild moves cells, so it never is."""
+    return (isinstance(vl, _EllVec) and isinstance(vl_new, _EllVec)
+            and vl_new.cells == vl.cells)
 
 
 # ------------------------------------------------------------ SSA keys ----
@@ -170,11 +221,24 @@ class CmeSolver:
     """Reusable table-backend solver bound to one model and one device.
 
     ``device`` defaults to ``"cuda"``; the CPU runs only when asked for by
-    name.  ``mesh`` (a row-sharded table solve) is not ported yet and
-    raises (ROADMAP.md Queue A item 22).  ``config.table_operator`` "auto"
-    and "ell" take the gather-ELL operator; "pencil" raises (item 21).
-    ``config.warm_next_bucket`` (the JAX package's background compile of
-    the next bucket) is accepted and ignored: nothing is compiled here.
+    name.  Pass ``mesh`` (a ``parallel.sharded.ShardMesh``; every rank
+    calls ``solve`` with the same arguments) to run the whole solve with
+    the state rows partitioned over the ranks: the gather-ELL operator,
+    the probability vector, the active mask and the Krylov basis hold
+    rank r's rows ``[r*cap/P, (r+1)*cap/P)``; a matvec all-gathers x, and
+    every sum over the rows is an all_reduce.  The state table stays
+    host-side on every rank, as the JAX package keeps it: rank 0 runs the
+    SSA walks and broadcasts the rows they add, every rank merges them and
+    runs the 1-step round, and a check after each expansion raises unless
+    every rank holds the same table.  Drop compaction, growth, snapshots
+    (rank 0 writes them, in the one-device format) and the result gather
+    the whole vector.  ``config.table_operator``: "auto" and "ell" take
+    the gather-ELL operator (the JAX package picks the pencil for "auto"
+    only on TPU); any other value builds the pencil operator
+    (ops/pencil.py), except under a mesh, where every value takes ELL, as
+    in the JAX package.  ``config.warm_next_bucket`` (the JAX package's
+    background compile of the next bucket) is accepted and ignored:
+    nothing is compiled here.
     """
 
     def __init__(
@@ -184,17 +248,24 @@ class CmeSolver:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the row-sharded table backend is not ported yet "
-                "(ROADMAP.md Queue A item 22); solve_cme_box(..., mesh=...) "
-                "runs the row-sharded box backend"
-            )
         self.model = model
         self.config = config or SolverConfig()
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        if mesh is None:
+            self._spmv = spmv
+        else:
+            from .parallel.sharded import sharded_matvec
+
+            self._spmv = sharded_matvec(mesh)
+        self._pencil_lane = None
         self.encoder = StateEncoder.for_model(
             model.n_species, self.config.max_molecules
         )
@@ -254,6 +325,7 @@ class CmeSolver:
             self._steps[key] = make_table_advance_fn(
                 self._cfg_eff(m_eff), budget,
                 max_states=self.config.max_states, basis=self._basis,
+                mesh=self.mesh,
             )
         return self._steps[key]
 
@@ -263,42 +335,150 @@ class CmeSolver:
         loops run the same arithmetic."""
         from .krylov.advance import make_masked_table_step
 
-        m_eff = self._m_eff(w.shape[0])
+        m_eff = self._m_eff(self._cells(w))
         if m_eff not in self._steps:
             self._steps[m_eff] = make_masked_table_step(
-                self._cfg_eff(m_eff), basis=self._basis
+                self._cfg_eff(m_eff), basis=self._basis, mesh=self.mesh
             )
         return self._steps[m_eff](op_active, w, *args)
 
     # ------------------------------------------------------------------ #
 
+    def _cells(self, w: torch.Tensor) -> int:
+        """The whole vector's length (every rank's rows under a mesh): the
+        basis clamp counts it, so m_eff is the one-device solve's."""
+        return w.shape[0] * (1 if self.mesh is None else self.mesh.size)
+
+    def _total(self, t):
+        """A float64 sum over the rows: over every rank under a mesh."""
+        return t if self.mesh is None else self.mesh.sum(t)
+
     def _choose_operator(self, table: StateTable):
-        """Resolve config.table_operator: "auto" and "ell" give the
-        gather-ELL operator, as the JAX package picks on CPU and GPU."""
-        mode = self.config.table_operator
-        if mode == "pencil":
-            raise NotImplementedError(
-                "table_operator='pencil' is not ported yet (ROADMAP.md "
-                "Queue A item 21); 'auto' and 'ell' take the gather-ELL "
-                "operator"
-            )
-        if mode not in ("auto", "ell"):
-            raise ValueError(f"unknown table_operator {mode!r}")
+        """Resolve config.table_operator, as the JAX package does off TPU:
+        "ell", "auto" and any value under a mesh take the gather-ELL
+        operator; any other value the pencil operator, laid along
+        ``config.pencil_lane_species`` (default: the species of largest
+        extent in the current states)."""
+        cfg = self.config
+        self._pencil_lane = None
+        mode = cfg.table_operator
+        if mode in ("ell", "auto") or self.mesh is not None:
+            return
+        lane = cfg.pencil_lane_species
+        if lane is None:
+            lane = int(np.argmax(table.states[: table.n].max(axis=0)))
+        self._pencil_lane = int(lane)
 
     def _operator(self, table: StateTable):
         """(operator, vector layout) for the current state set: the table's
-        arrays go to the device once, and the operator is built there."""
-        dev = self.device
-        op = build_operator(
-            torch.as_tensor(table.states, device=dev),
-            torch.as_tensor(table.sorted_keys, device=dev),
-            torch.as_tensor(table.sorted_to_row, device=dev),
-            table.n, self._props_fn, self._stoich, self.encoder, self._dtype,
-        )
-        if dev.type == "cuda" and not all(t.is_cuda for t in op):
+        arrays go to the device once, and the operator is built there (this
+        rank's rows of it under a mesh)."""
+        if self._pencil_lane is not None:
+            op, vl = self._pencil_operator(table)
+            tensors = op.tensors()
+        else:
+            dev = self.device
+            vl = _EllVec(table, dev, self._dtype, self.mesh)
+            op = build_operator(
+                torch.as_tensor(table.states, device=dev),
+                torch.as_tensor(table.sorted_keys, device=dev),
+                torch.as_tensor(table.sorted_to_row, device=dev),
+                table.n, self._props_fn, self._stoich, self.encoder,
+                self._dtype, rows=None if self.mesh is None else vl._rows,
+            )
+            tensors = tuple(op)
+        if self.device.type == "cuda" and not all(t.is_cuda for t in tensors):
             raise RuntimeError("table operator built off the card: "
-                               f"{[t.device for t in op]}")
-        return op, _EllVec(table, dev, self._dtype)
+                               f"{[t.device for t in tensors]}")
+        return op, vl
+
+    def _pencil_operator(self, table: StateTable):
+        """The pencil operator: the host builds the small index tables
+        (layout and source rows), padded to a rows bucket; the per-cell
+        fields are built on the device (ops/pencil.py)."""
+        from .ops.pencil import (
+            LANES,
+            build_pencil_layout,
+            host_index_tables,
+            make_pencil_operator_builder,
+        )
+
+        lane = self._pencil_lane
+        layout = build_pencil_layout(table.states[: table.n], lane)
+        src_a, src_b = host_index_tables(layout, self._stoich)
+        rows = layout.n_rows
+        rows_b = max(64, 1 << int(np.ceil(np.log2(max(rows, 1)))))
+        R = self._stoich.shape[0]
+        row_base_p = np.full(rows_b, -1, np.int32)
+        row_base_p[:rows] = layout.row_base
+        row_block_p = np.zeros(rows_b, np.int32)
+        row_block_p[:rows] = layout.row_block
+        src_a_p = np.full((R, rows_b), -1, np.int32)
+        src_a_p[:, :rows] = src_a
+        src_b_p = np.full((R, rows_b), -1, np.int32)
+        src_b_p[:, :rows] = src_b
+        cells = rows_b * LANES
+        mask_p = np.zeros(cells, bool)
+        mask_p[: rows * LANES] = layout.mask.reshape(-1)
+
+        key = ("pencil_build", lane)
+        if key not in self._steps:
+            self._steps[key] = make_pencil_operator_builder(
+                self.model, self._stoich, lane, self.encoder.species_cap,
+                self._dtype, self.device, params=self._props_fn.keywords[
+                    "params"],
+            )
+        op = self._steps[key](layout.bases, row_base_p, row_block_p, src_a_p,
+                              src_b_p, mask_p, table.n)
+        return op, _PencilVec(layout, mask_p, self.device, self._dtype)
+
+    def _check_table(self, table: StateTable):
+        """Raise unless every rank of the mesh holds the same table: its
+        row count, capacity and a SHA-1 of its rows, gathered as int64."""
+        digest = hashlib.sha1(
+            np.ascontiguousarray(table.states[: table.n]).tobytes()
+        ).digest()
+        mine = torch.tensor(
+            [table.n, table.capacity,
+             *np.frombuffer(digest[:16], dtype=np.int64).tolist()],
+            dtype=torch.int64, device=self.mesh.device)
+        every = self.mesh.gather(mine).cpu().reshape(self.mesh.size, -1)
+        if not bool((every == every[0]).all()):
+            raise RuntimeError(
+                "the ranks' state tables differ after an expansion "
+                f"(rank: n, capacity, digest = {every.tolist()}): every rank "
+                "must merge the same rows in the same order"
+            )
+
+    def _ssa_extend(self, table: StateTable, t_ssa) -> tuple:
+        """SSA expansion of the table.  Under a mesh rank 0 runs the walks
+        (``ssa_extend``) and broadcasts the rows they appended; every other
+        rank appends them in the same order."""
+        cfg = self.config
+        args = (self._props_fn, self._stoich, float(t_ssa), self.generator,
+                cfg.ssa_max_steps, cfg.max_states)
+        mesh = self.mesh
+        if mesh is None:
+            return ssa_extend(table, *args)
+        n0 = table.n
+        if mesh.rank == 0:
+            table, _ = ssa_extend(table, *args)
+        m = int(mesh.broadcast(torch.tensor([table.n - n0])).item())
+        if m == 0:
+            return table, 0
+        W = self.encoder.n_words
+        d = self.model.n_species
+        if mesh.rank == 0:
+            keys = torch.as_tensor(table.keys[n0:n0 + m])
+            states = torch.as_tensor(table.states[n0:n0 + m])
+        else:
+            keys = torch.zeros((m,) if W == 1 else (m, W), dtype=torch.int64)
+            states = torch.zeros((m, d), dtype=torch.int32)
+        keys = mesh.broadcast(keys).cpu().numpy()
+        states = mesh.broadcast(states).cpu().numpy()
+        if mesh.rank != 0:
+            table, _ = table.merge_keys(keys, states, cfg.max_states)
+        return table, m
 
     def _expand(self, table, t_ssa, carry, t_out, fsptol):
         """SSA + 1-step expansion (KrylovSolver.f90:516-534) on the device
@@ -326,11 +506,10 @@ class CmeSolver:
             )
         self._key, seed = _split_key(self._key)
         self.generator.manual_seed(seed)
-        table, added_ssa = ssa_extend(
-            table, self._props_fn, self._stoich, float(t_ssa),
-            self.generator, cfg.ssa_max_steps, cfg.max_states,
-        )
+        table, added_ssa = self._ssa_extend(table, t_ssa)
         table, added_1s = onestep_extend(table, self._stoich, cfg.max_states)
+        if self.mesh is not None:
+            self._check_table(table)
         return table, added_ssa, added_1s
 
     def solve(
@@ -446,10 +625,12 @@ class CmeSolver:
                 if keep is not None and not keep.all():
                     states_ck = states_ck[keep]
                     w_ck = w_ck[keep]
-                save_table_checkpoint(
-                    checkpoint_path, states_ck, w_ck, carry_, t_out, fsptol,
-                    krytol, self._key,
-                )
+                # every rank gathers w; one writes the snapshot
+                if self.mesh is None or self.mesh.rank == 0:
+                    save_table_checkpoint(
+                        checkpoint_path, states_ck, w_ck, carry_, t_out,
+                        fsptol, krytol, self._key,
+                    )
                 last_ckpt[0] = nstep
 
         if cfg.fused_steps:
@@ -495,17 +676,18 @@ class CmeSolver:
             # ---- drop surplus mass (KrylovSolver.f90:509-511) ----------
             if res.advanced and res.dsum > 0.0:
                 w64 = w.to(_F64)
-                inflow = spmv(op, w).to(_F64)
+                inflow = self._spmv(op, w).to(_F64)
+                reduce = None if self.mesh is None else self.mesh.sum
                 mask, count, _ = drop_mask_device(
                     w64, inflow, active, res.dsum,
                     droptol_start=cfg.droptol_start,
-                    inflow_guard=cfg.inflow_guard,
+                    inflow_guard=cfg.inflow_guard, reduce=reduce,
                 )
                 # anti-thrash gate, the fused loop's policy (drop_inline):
                 # commit only when the drop set's gross leak rate fits the
                 # scaled FSP budget rate, unless under memory pressure
                 loss_rate = drop_loss_rate(w64, inflow, op.diag.to(_F64),
-                                           mask)
+                                           mask, reduce)
                 rate_budget = cfg.drop_rate_frac * fsptol / abs(t_out)
                 pressure = cfg.max_states is not None and (
                     table.n >= cfg.drop_pressure_frac * cfg.max_states
@@ -540,9 +722,10 @@ class CmeSolver:
                         [w_rows, np.zeros(table.n - n_before)]
                     )
                     op, vl_new = self._operator(table)
-                    if vl_new.cells != vl.cells:
-                        # capacity growth: re-place the vector; appended
-                        # states carry probability zero
+                    if not _same_layout(vl, vl_new):
+                        # layout changed (pencil re-slotting or capacity
+                        # growth): re-place the vector; appended states
+                        # carry probability zero
                         w = vl_new.put(w_rows)
                     vl = vl_new
                 stats.n_expansions += 1
@@ -589,7 +772,7 @@ class CmeSolver:
         (clean) probability vector: a fresh step size, reset adaptivity
         history, counters kept."""
         cfg = self.config
-        beta = math.sqrt(float(torch.sum(w.to(_F64) ** 2)))
+        beta = math.sqrt(float(self._total(torch.sum(w.to(_F64) ** 2))))
         remaining = abs(float(t_out)) - float(carry.t_now)
         fresh = initial_carry(beta, remaining, krytol, cfg.anorm, cfg.m_min)
         return carry._replace(
@@ -736,9 +919,9 @@ class CmeSolver:
                         [w_rows, np.zeros(table.n - len(w_rows))]
                     )
                     op, vl_new = self._operator(table)
-                    if compacted or vl_new.cells != vl.cells:
+                    if compacted or not _same_layout(vl, vl_new):
                         # re-place the vector unless the row layout is
-                        # unchanged (an append within the same bucket:
+                        # unchanged (an ELL append within the same bucket:
                         # appended states already read as zero padding)
                         w = vl_new.put(w_rows)
                     vl = vl_new
@@ -773,7 +956,9 @@ def solve_cme(
 ) -> SolveResult:
     """Solve the CME of ``model`` to time ``t`` on the table backend
     (:class:`CmeSolver`; CME_SOLVE parity).  ``device`` defaults to
-    ``"cuda"``; ``mesh`` raises (ROADMAP.md Queue A item 22)."""
+    ``"cuda"``; with ``mesh`` the solve is row-sharded and every rank of
+    the mesh calls this with the same arguments (every rank returns the
+    whole result)."""
     solver = CmeSolver(model, config, mesh=mesh, device=device)
     return solver.solve(
         t, initial_states, p0, fsp_tol, krylov_tol, verbosity=verbosity,

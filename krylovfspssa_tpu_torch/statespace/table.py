@@ -133,6 +133,14 @@ class StateTable:
             device=device,
         )
 
+    def __reduce__(self):
+        """Pickle as the rows: the native index (a C object) is rebuilt on
+        loading, so a sharded solve's rank can hand back its result."""
+        return (StateTable._build, (
+            self.states[: self.n], self.keys[: self.n], self.n,
+            self.capacity, self.encoder, "rebuild", self.native, self.device,
+        ))
+
     # ------------------------------------------------------------------ #
 
     def lookup(self, query_keys) -> np.ndarray:

@@ -205,21 +205,35 @@ def test_one_rank_mesh_takes_halo_path():
 
 
 def test_refusals_under_a_mesh():
-    """Under a mesh: a model that does not factor and use_halo=False raise
-    NotImplementedError (not ported yet); the halo factory returns None for
-    the former, as the JAX one does; wrong halos are refused."""
+    """Under a mesh a model that does not factor takes the direct halo
+    matvec (the separable factory returns None for it, as the JAX one
+    does), and use_halo=False keeps halo_stencil with gathered halos: both
+    equal the one-device plain stencil.  Wrong halos are refused."""
     mesh = ShardMesh("cpu")
     cm = tlib.toggle_programmatic_model()
     cb = _grown(TBox, cm.stoichiometry, [[0, 0]], [16, 16])
     assert make_halo_stencil_matvec(cm, cb, mesh) is None
-    with pytest.raises(NotImplementedError, match="does not factor"):
-        tst.select_stencil_matvec(cm, cb, SolverConfig(), torch.float64,
-                                  "cpu", mesh=mesh)
+    mask, x = _inputs(cb.volume, 2, 0.6)
+    m, xt = torch.from_numpy(mask), torch.from_numpy(x)
+    before = stencil_cuda.DIRECT_LAUNCHES
+    mv = tst.select_stencil_matvec(cm, cb, SolverConfig(), torch.float64,
+                                   "cpu", mesh=mesh)
+    np.testing.assert_allclose(
+        mv(m, xt).numpy(),
+        tst.make_stencil_matvec(cm, cb, torch.float64, "cpu")(m, xt).numpy(),
+        rtol=1e-13, atol=1e-13)
+    # the plain version on the CPU: no launch is counted
+    assert stencil_cuda.DIRECT_LAUNCHES == before
     tm = tlib.toggle_file_model()
     tb = _grown(TBox, tm.stoichiometry, [[0, 0]], [16, 16])
-    with pytest.raises(NotImplementedError, match="use_halo=False"):
-        tst.select_stencil_matvec(tm, tb, SolverConfig(use_halo=False),
-                                  torch.float64, "cpu", mesh=mesh)
+    mask, x = _inputs(tb.volume, 3, 0.6)
+    m, xt = torch.from_numpy(mask), torch.from_numpy(x)
+    mv = tst.select_stencil_matvec(tm, tb, SolverConfig(use_halo=False),
+                                   torch.float64, "cpu", mesh=mesh)
+    np.testing.assert_allclose(
+        mv(m, xt).numpy(),
+        tst.make_stencil_matvec(tm, tb, torch.float64, "cpu")(m, xt).numpy(),
+        rtol=1e-13, atol=1e-13)
     pack = stencil_cuda.pack_halo_stencil(tm, tb, torch.float64, "cpu")
     m = torch.ones(tb.volume, dtype=torch.bool)
     x = torch.ones(tb.volume, dtype=torch.float64)

@@ -61,6 +61,12 @@ for fused in (True, False):
                    device="cpu")
     assert isinstance(rt, SolveResult) and rt.stats.iflag == 0, rt.wsum
     assert rt.table.host_index is not None and rt.wsum >= 1 - 1e-4
+from krylovfspssa_tpu_torch.ops.pencil import PencilOperator, pencil_matvec
+from krylovfspssa_tpu_torch.parallel import sharded_matvec, sharded_step_fn
+rp = solve_cme(toggle_file_model(), 1.0, [[0, 0]], fsp_tol=1e-4,
+               krylov_tol=1e-8, config=SolverConfig(table_operator="pencil"),
+               device="cpu")
+assert rp.stats.iflag == 0 and abs(rp.wsum - rt.wsum) < 1e-6, rp.wsum
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "krylovfspssa_tpu.")))
 assert not bad, bad

@@ -89,8 +89,8 @@ def _ops_rank(mesh):
         sharded_dilate_fn,
     )
 
-    out = {"init": multihost.initialize(), "world": multihost.global_mesh()
-           .size}
+    out = {"init": multihost.initialize(),
+           "world": multihost.global_mesh("cpu").size}
     for name, model, box in _op_cases():
         mask, x, sparse, faces, w = _op_inputs(box, 7)
         z0, n = mesh.rows(box.volume)
@@ -142,15 +142,15 @@ def _ops_rank(mesh):
     out["step"] = (res.w.numpy(), float(res.carry.t_now), res.wsum,
                    res.m_used)
 
-    # a model that does not factor is refused under a mesh
+    # a model that does not factor takes the direct halo matvec
     cm = tlib.toggle_programmatic_model()
-    try:
-        tst.select_stencil_matvec(cm, _grown(cm, [[0, 0]], [16, 16]),
-                                  SolverConfig(), torch.float64, "cpu",
-                                  mesh=mesh)
-        out["refusal"] = None
-    except NotImplementedError as e:
-        out["refusal"] = str(e)
+    cb = _grown(cm, [[0, 0]], [16, 16])
+    mask, x, _, _, _ = _op_inputs(cb, 11)
+    z0, n = mesh.rows(cb.volume)
+    out["direct"] = (tst.select_stencil_matvec(
+        cm, cb, SolverConfig(), torch.float64, "cpu", mesh=mesh,
+    )(torch.from_numpy(mask[z0:z0 + n]),
+      torch.from_numpy(x[z0:z0 + n])).numpy(), z0, n)
     return out
 
 
@@ -194,10 +194,14 @@ def test_initialize_without_a_launch(monkeypatch):
         monkeypatch.delenv(v, raising=False)
     assert multihost.initialize() is False
     assert not dist.is_initialized()
-    mesh = multihost.global_mesh()
-    assert mesh.size == 1
-    assert mesh.device.type == ("cuda" if torch.cuda.is_available()
-                                else "cpu")
+    mesh = multihost.global_mesh("cpu")
+    assert (mesh.size, mesh.device.type) == (1, "cpu")
+    # the default is the card: without one the mesh raises
+    if torch.cuda.is_available():
+        assert multihost.global_mesh().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="needs CUDA"):
+            multihost.global_mesh()
     with pytest.raises((ValueError, RuntimeError)):
         multihost.initialize("tcp://127.0.0.1:29500", backend="gloo")
     assert not dist.is_initialized()
@@ -291,9 +295,19 @@ def test_sharded_step_matches_single(ops):
 
 
 def test_nonfactoring_model_refused_under_mesh(ops):
+    """A model that does not factor is no longer refused under a mesh: its
+    ranks' direct halo matvecs, concatenated, are the one-device plain
+    stencil to 1e-13 relative."""
     _, outs = ops
-    for o in outs:
-        assert o["refusal"] and "does not factor" in o["refusal"]
+    cm = tlib.toggle_programmatic_model()
+    cb = _grown(cm, [[0, 0]], [16, 16])
+    mask, x, _, _, _ = _op_inputs(cb, 11)
+    ref = tst.make_stencil_matvec(cm, cb)(torch.from_numpy(mask),
+                                          torch.from_numpy(x)).numpy()
+    y = np.concatenate([o["direct"][0] for o in outs])
+    assert [o["direct"][1] for o in outs] == [r * outs[0]["direct"][2]
+                                              for r in range(len(outs))]
+    np.testing.assert_allclose(y, ref, rtol=1e-13, atol=1e-13)
 
 
 # ------------------------------------------------- whole sharded solves --
@@ -434,7 +448,10 @@ def test_dryrun_multichip(capsys):
 
     res = dryrun_multichip(2, device="cpu")
     assert res.stats.t_final >= 5.0 and res.wsum >= 1.0 - 1e-4
-    assert "dryrun_multichip ok" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    # both halves ran: the sharded table step, then the sharded box solve
+    assert "dryrun_multichip ok (table backend): 2 ranks" in out
+    assert "dryrun_multichip ok" in out.split("(table backend)")[1]
 
 
 def test_dryrun_multichip_defaults_to_cuda():

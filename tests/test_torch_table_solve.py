@@ -11,7 +11,7 @@ solves are held to the FSP tolerance, not step for step
   * bursting_gene against its oracle, the point-probability query, a
     5-species model whose keys take two words, the NaN-step recovery
     (``_sanitize_carry``) against the JAX package's, and the entry
-    points' refusals (pencil operator, a mesh, no card).
+    points' refusals (a device other than the mesh's, no card).
 """
 
 import numpy as np
@@ -202,12 +202,21 @@ def test_expansions_without_progress_raise(fused, monkeypatch):
 
 
 def test_refusals():
+    """What the table entry points refuse: a device other than the
+    mesh's, a resume-less solve without initial states, and (without a
+    card) the default device.  The pencil operator and a mesh are
+    accepted: the pencil solves within fsp_tol of ELL."""
+    from krylovfspssa_tpu_torch.parallel.sharded import ShardMesh
+
     model = tlib.toggle_file_model()
-    with pytest.raises(NotImplementedError, match="item 21"):
-        solve_cme(model, 1.0, [[0, 0]], device="cpu",
-                  config=SolverConfig(table_operator="pencil"))
-    with pytest.raises(NotImplementedError, match="item 22"):
-        CmeSolver(model, mesh=object(), device="cpu")
+    kw = dict(fsp_tol=1e-4, krylov_tol=1e-8, device="cpu")
+    rp = solve_cme(model, 1.0, [[0, 0]],
+                   config=SolverConfig(table_operator="pencil"), **kw)
+    re_ = solve_cme(model, 1.0, [[0, 0]], **kw)
+    assert rp.wsum == pytest.approx(re_.wsum, abs=1e-4)
+    assert CmeSolver(model, mesh=ShardMesh("cpu"), device="cpu").mesh.size == 1
+    with pytest.raises(ValueError, match="not the mesh's"):
+        CmeSolver(model, mesh=ShardMesh("cpu"), device="cuda")
     with pytest.raises(ValueError, match="initial_states"):
         solve_cme(model, 1.0, None, device="cpu")
     # the entry points default to the card: without one they fail
