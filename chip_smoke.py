@@ -7,8 +7,8 @@ NVIDIA GPU.
                                             # paths alone
     python3 chip_smoke.py --table-flagship  # Goutsias t=300 alone
 
-Builds the hand-written stencil kernels from ``krylovfspssa_tpu_torch/csrc``
-with nvcc (and the table backend's native hash with g++), drives the port's
+Builds the hand-written stencil and Padé kernels from
+``krylovfspssa_tpu_torch/csrc`` with nvcc (and the table backend's native hash with g++), drives the port's
 three box solve paths through ``solve_cme_box``/``BoxCmeSolver`` and its
 table path through ``CmeSolver`` on ``cuda`` -- in the default fused main
 loop (krylov/advance.py) unless a phase says otherwise -- then holds each
@@ -67,6 +67,17 @@ paths:
      device-busy share and device-to-host copies and syncs per attempted
      step of toggle t=5 in both loops (box and table backends), Goutsias
      t=10, toggle_programmatic t=5 and the library ge5d;
+  5b. ``[step]``: the ``expm_pade`` kernel (csrc/expm_pade.cu, every
+     attempted step's Padé exponential) vs its plain version on
+     Hessenbergs that the toggle and Goutsias solves hand it (mx near 12
+     and 32) and on a 100-column one from the toggle solve's end (mx =
+     102), with ``torch.linalg.matrix_exp`` on the same block as the
+     yardstick; the Arnoldi columns replayed as CUDA graphs
+     (krylov/graphs.py) against the same columns run eagerly, bit for bit,
+     on the final geometries of those solves.  ``[profile]`` also counts
+     the matvecs that ran after a breakdown, and fails if the one-card
+     fused toggle or toggle_programmatic t=5 shows more than
+     ``MAX_SYNCS_PER_STEP`` host syncs per attempted step;
   6. ``[kernels]``: ``box_stencil`` vs its plain version at three box
      geometries (the 2^22-cell Goutsias box, a 512x512 toggle box, a
      128-cell box smaller than one thread block) in float64 and float32,
@@ -145,9 +156,13 @@ F64_RTOL = 1e-12
 F32_RTOL = 1e-5
 
 #: H100 SXM device memory rate, and its peak arithmetic rates outside the
-#: tensor cores (NVIDIA's data sheet): the kernels' bounds
+#: tensor cores (NVIDIA's data sheet): the stencils' bounds (their work is
+#: elementwise)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+#: the float64 tensor cores' peak (the same data sheet): the bound of
+#: expm_pade, whose work is dense float64 matrix products and an LU
+PEAK_FLOPS_F64_MMA = 67e12
 
 #: the ge5d scenario of tests/test_models_e2e.py (x0 = 0, fsp_tol 1e-4,
 #: krylov_tol 1e-8, box_min_log2 2) at its horizon; the fused loop keeps
@@ -209,11 +224,12 @@ def _time_ms(fn, *args, warmup=3, launches=20, rounds=5) -> float:
     return statistics.median(a.elapsed_time(b) / launches for a, b in runs)
 
 
-def _bound(nbytes, flops, dt):
+def _bound(nbytes, flops, dt, peak=None):
     """(ms, "bytes" or "operations"): the least time the card could take
-    to move ``nbytes`` and do ``flops`` of type ``dt``."""
+    to move ``nbytes`` and do ``flops`` of type ``dt`` (at ``peak``
+    operations per second where given, else at ``PEAK_FLOPS``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(dt)[6:]]
+    t_ops = flops / (peak or PEAK_FLOPS[str(dt)[6:]])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -330,8 +346,9 @@ def phase_env():
           f"count {torch.cuda.device_count()}")
     info = stencil_cuda.build()
     print(f"[env] kernels (sep_stencil: separable mode for box_stencil and "
-          f"halo_stencil, direct mode for direct_stencil) built in "
-          f"{info.seconds:.2f} s -> {info.path}")
+          f"halo_stencil, direct mode for direct_stencil; expm_pade) built "
+          f"in {info.seconds:.2f} s (one nvcc per source, in parallel) -> "
+          f"{info.path}")
     for line in info.log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"[env]   {line.strip()}")
@@ -354,15 +371,17 @@ def _final_inputs(res):
 
 class _LastInput:
     """While active, wraps ``stencil_cuda.<name>`` so that a solve keeps
-    the last (mask, x) it gave the kernel: the kernel's input on that solve
-    path.  Each call copies x on the card into a buffer kept here (one
-    device copy, no host sync); the mask is kept by reference, since the
-    solver builds a new mask wherever one changes (the version counter
-    shows it was not written since)."""
+    the last (mask, x) it gave the kernel at each box volume: the kernel's
+    input on that solve path.  Each call copies mask and x on the card into
+    buffers kept here for its volume (no host sync).  A call made while a
+    CUDA graph is captured (krylov/graphs.py: the Arnoldi columns on one
+    card) records the copies in the graph, so every replay keeps its input
+    too; the buffers live as long as this object, so no graph writes freed
+    memory."""
 
     def __init__(self, name):
         self.name = name
-        self.mask = self.x = None
+        self.buffers = {}
 
     def __enter__(self):
         import torch
@@ -372,10 +391,13 @@ class _LastInput:
         kernel = getattr(stencil_cuda, self.name)
 
         def keep_last(pack, mask, x):
-            if self.x is None or self.x.shape != x.shape:
-                self.x = torch.empty_like(x)
-            self.x.copy_(x)
-            self.mask, self.version = mask, mask._version
+            key = x.numel()
+            if key not in self.buffers:
+                self.buffers[key] = (torch.empty_like(mask),
+                                     torch.empty_like(x))
+            bm, bx = self.buffers[key]
+            bm.copy_(mask)
+            bx.copy_(x)
             return kernel(pack, mask, x)
 
         self._kernel = kernel
@@ -388,12 +410,16 @@ class _LastInput:
         setattr(stencil_cuda, self.name, self._kernel)
         return False
 
-    def inputs(self):
-        """The last (mask, x), moved to the host; frees the buffer."""
-        if self.mask is None or self.mask._version != self.version:
-            raise AssertionError(f"no intact last input of {self.name}")
-        out = self.mask.cpu(), self.x.cpu()
-        self.mask = self.x = None
+    def inputs(self, volume):
+        """The last (mask, x) at ``volume`` cells (the final box's: the
+        solve's last matvec ran there), moved to the host; frees the
+        buffers."""
+        if volume not in self.buffers:
+            raise AssertionError(f"no input of {self.name} at {volume} "
+                                 "cells")
+        mask, x = self.buffers[volume]
+        out = mask.cpu(), x.cpu()
+        self.buffers = {}
         return out
 
 
@@ -484,20 +510,31 @@ def phase_small_solve():
         raise AssertionError(f"cuda and cpu solves differ: L1={l1:.3e}")
 
 
+#: the stencil kernels (one is the matvec of every box solve; the table
+#: paths launch none); ``expm_pade`` runs in every solve on the card
+STENCILS = ("box_stencil", "direct_stencil", "halo_stencil")
+
+
 def _launches() -> dict:
-    from krylovfspssa_tpu_torch.ops import stencil_cuda
+    from krylovfspssa_tpu_torch.ops import expm, stencil_cuda
 
     return {"box_stencil": stencil_cuda.LAUNCHES,
             "direct_stencil": stencil_cuda.DIRECT_LAUNCHES,
-            "halo_stencil": stencil_cuda.HALO_LAUNCHES}
+            "halo_stencil": stencil_cuda.HALO_LAUNCHES,
+            "expm_pade": expm.LAUNCHES}
 
 
 def _reset_launches():
-    from krylovfspssa_tpu_torch.ops import stencil_cuda
+    from krylovfspssa_tpu_torch.ops import expm, stencil_cuda
 
     stencil_cuda.LAUNCHES = 0
     stencil_cuda.DIRECT_LAUNCHES = 0
     stencil_cuda.HALO_LAUNCHES = 0
+    expm.LAUNCHES = 0
+
+
+def _any_stencil(launches) -> bool:
+    return any(launches[k] for k in STENCILS)
 
 
 @contextlib.contextmanager
@@ -551,7 +588,8 @@ def _solve(model, t, x0, fsp_tol, krylov_tol, config=None):
 def _check_solve(tag, solver, res, launches, wsum_lo, wsum_hi,
                  kernel="box_stencil"):
     """The correctness gate of one solve; every matvec went through
-    ``kernel`` and none through the other one."""
+    ``kernel`` and none through another stencil kernel, and every
+    exponential through ``expm_pade``."""
     import torch
 
     s = res.stats
@@ -567,9 +605,12 @@ def _check_solve(tag, solver, res, launches, wsum_lo, wsum_hi,
     if launches[kernel] < s.nmult:
         raise AssertionError(f"{tag}: {launches[kernel]} {kernel} launches "
                              f"< nmult {s.nmult}")
-    other = sum(n for k, n in launches.items() if k != kernel)
+    other = sum(launches[k] for k in STENCILS if k != kernel)
     if other:
         raise AssertionError(f"{tag}: {launches} — expected only {kernel}")
+    if launches["expm_pade"] < s.nexph:
+        raise AssertionError(f"{tag}: {launches['expm_pade']} expm_pade "
+                             f"launches < nexph {s.nexph}")
 
 
 def _print_solve(tag, solver, res, launches, wall):
@@ -743,18 +784,57 @@ def _device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+@contextlib.contextmanager
+def _extensions():
+    """While active, every Arnoldi extension of the stepper is kept as
+    (jold, m, its state); ``wasted(ext)`` is then the number of matvecs
+    that ran after a breakdown (launched, and not in nmult)."""
+    from krylovfspssa_tpu_torch.krylov import stepper
+
+    inner = stepper.arnoldi_extend
+    kept = []
+
+    def spy(matvec, V, H, jold, m, *rest, **kw):
+        st = inner(matvec, V, H, jold, m, *rest, **kw)
+        kept.append((jold, m, st.breakdown, st.nmult))
+        return st
+
+    stepper.arnoldi_extend = spy
+    try:
+        yield kept
+    finally:
+        stepper.arnoldi_extend = inner
+
+
+def _wasted(kept):
+    """(matvecs run after a breakdown, extensions that broke down, all
+    extensions) of the kept extensions (reads them once, after the
+    solve)."""
+    import torch
+
+    if not kept:
+        return 0, 0, 0
+    brk = torch.stack([k[2] for k in kept]).cpu().numpy()
+    nmult = torch.stack([k[3] for k in kept]).cpu().numpy()
+    launched = np.array([m - jold + 2 for jold, m, _, _ in kept])
+    return int((launched - nmult).sum()), int(brk.sum()), len(kept)
+
+
 def _profile(tag, args, solve=None):
     """Device-busy and host-synchronisation shares of one solve, and its
     device-to-host copies and synchronisations per attempted step (per
-    step record).  The solve runs once plainly (its wall is the
-    denominator) and once under torch.profiler (kernel times and the
-    counts of host syncs and copies; the profiler slows the host, not the
-    kernels).  ``solve`` is :func:`_solve` (the box backend) unless
-    given."""
+    step record); returns the syncs per attempted step.  The solve runs
+    once plainly (its wall is the denominator; the matvecs that ran after
+    a breakdown are counted there) and once under torch.profiler (kernel
+    times and the counts of host syncs and copies; the profiler slows the
+    host, not the kernels).  ``solve`` is :func:`_solve` (the box backend)
+    unless given."""
     from torch.profiler import ProfilerActivity, profile
 
     solve = solve or _solve
-    res, wall = solve(*args)[1::2]
+    with _extensions() as kept:
+        res, wall = solve(*args)[1::2]
+    wasted, broke, ext = _wasted(kept)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_prof = solve(*args)[3]
@@ -766,10 +846,13 @@ def _profile(tag, args, solve=None):
     attempts = max(len(res.stats.records), 1)
     blocked_us = sum(e.cpu_time_total for e in events
                      if e.key in ("cudaStreamSynchronize", "cudaMemcpyAsync"))
+    print(f"[profile] {tag}: {wasted} matvecs ran after a breakdown "
+          f"({broke} of {ext} Arnoldi extensions broke down; nmult "
+          f"{res.stats.nmult})")
     if dev_us == 0.0:
         print(f"[profile] {tag}: no device time in the trace; busy and "
               f"sync shares not measured (wall {wall:.3f} s)")
-        return
+        return n_sync / attempts
     print(f"[profile] {tag}: wall {wall:.3f} s (nmult {res.stats.nmult}), "
           f"kernel time {dev_us / 1e6:.3f} s = device busy "
           f"{100 * dev_us / 1e6 / wall:.1f}% of that wall; {n_sync} host "
@@ -781,6 +864,13 @@ def _profile(tag, args, solve=None):
     for e in sorted(events, key=lambda e: -_device_us(e))[:6]:
         print(f"[profile]   {e.key[:60]:60s} {_device_us(e) / 1e3:9.1f} ms "
               f"x{e.count}")
+    return n_sync / attempts
+
+
+#: host syncs per attempted step allowed on the one-card box solves whose
+#: Arnoldi columns replay as CUDA graphs (one read per attempt and per FSP
+#: evaluation, the fused loop's reads after a drop or an expansion)
+MAX_SYNCS_PER_STEP = 8
 
 
 GOUTSIAS = (10.0, [[2, 6, 0, 2, 0, 0]], 1e-6, 1e-8)
@@ -799,13 +889,17 @@ def phase_profiles():
         toggle_programmatic_model,
     )
 
+    gated = {}
     for loop, config in (("fused", None),
                          ("stepwise", SolverConfig(fused_steps=False))):
-        _profile(f"toggle t=5 {loop}",
-                 (toggle_file_model(), 5.0, [[0, 0]], 1e-4, 1e-10, config))
+        gated[f"toggle t=5 {loop}"] = _profile(
+            f"toggle t=5 {loop}",
+            (toggle_file_model(), 5.0, [[0, 0]], 1e-4, 1e-10, config))
+    del gated["toggle t=5 stepwise"]  # its op_info reads every step
     _profile("goutsias t=10", (goutsias_model(), *GOUTSIAS))
-    _profile("toggle_programmatic t=5",
-             (toggle_programmatic_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
+    gated["toggle_programmatic t=5"] = _profile(
+        "toggle_programmatic t=5",
+        (toggle_programmatic_model(), 5.0, [[0, 0]], 1e-4, 1e-10))
     for loop, config in (("fused", None),
                          ("stepwise", SolverConfig(fused_steps=False))):
         _profile(f"table toggle t=5 {loop}",
@@ -814,6 +908,199 @@ def phase_profiles():
     _profile("ge5d-library t=%g" % GE5D_T,
              (ge5d_model(), GE5D_T, [[0, 0, 0, 0, 0]], 1e-4, 1e-8,
               SolverConfig(box_min_log2=2)))
+    for tag, per_step in gated.items():
+        if per_step is not None and per_step > MAX_SYNCS_PER_STEP:
+            raise AssertionError(f"[profile] {tag}: {per_step:.1f} host "
+                                 f"syncs per attempted step > "
+                                 f"{MAX_SYNCS_PER_STEP}")
+
+
+@contextlib.contextmanager
+def _expm_calls():
+    """While active, every exponential a stepper asks for is kept as
+    (Hbar, mx, t): the kernel's inputs on that solve path (the stepper
+    never writes an Hbar again, so they are kept by reference)."""
+    from krylovfspssa_tpu_torch.krylov import stepper
+
+    inner = stepper.expm_pade
+    kept = []
+
+    def spy(H, mx, t, ideg=6):
+        kept.append((H, mx, t))
+        return inner(H, mx, t, ideg)
+
+    stepper.expm_pade = spy
+    try:
+        yield kept
+    finally:
+        stepper.expm_pade = inner
+
+
+def _expm_flops(n, ns, ideg=6) -> float:
+    """The kernel's float64 operations at block n with ns squarings: the
+    products of A2, the Horner steps and the odd part, the LU with n
+    right-hand sides and the ns squarings (2 n^3 each)."""
+    return (2.0 * (ideg + 1) + 2.0 * ns + 8.0 / 3.0) * n ** 3
+
+
+def _expm_case(tag, H, mx, t):
+    """expm_pade (kernel) vs expm_pade_plain on one Hessenberg on the card:
+    relative error, kernel / plain / torch.linalg.matrix_exp times, bound."""
+    import torch
+
+    from krylovfspssa_tpu_torch.ops import expm
+
+    dev = H.device
+    mx_d = torch.tensor(mx, dtype=torch.int64, device=dev)
+    t_d = torch.tensor(t, dtype=torch.float64, device=dev)
+    Ek, hk, nk = expm.expm_pade(H, mx_d, t_d)
+    Ep, hp, np_ = expm.expm_pade_plain(H, mx, t)
+    torch.cuda.synchronize()
+    scale = float(torch.max(torch.abs(Ep)))
+    err = float(torch.max(torch.abs(Ek - Ep)))
+    ns = int(np_)
+    if int(nk) != ns or not abs(float(hk) - float(hp)) <= 1e-12 * float(hp):
+        raise AssertionError(f"[step] expm {tag}: hnorm/ns {float(hk)}/"
+                             f"{int(nk)} vs plain {float(hp)}/{ns}")
+    if not err <= F64_RTOL * scale:
+        raise AssertionError(f"[step] expm {tag} mx={mx}: kernel vs plain "
+                             f"{err:.3e} > {F64_RTOL:g} x {scale:.3e}")
+    block = (t * H[:mx, :mx]).contiguous()
+    lib_ms = _time_ms(torch.linalg.matrix_exp, block)
+    ms = _time_ms(expm.expm_pade, H, mx_d, t_d)
+    plain_ms = _time_ms(expm.expm_pade_plain, H, mx, t)
+    row = _row(err, ms, plain_ms,
+               _bound(8 * (mx * mx + H.numel()), _expm_flops(mx, ns),
+                      torch.float64, PEAK_FLOPS_F64_MMA), lib_ms, None)
+    row.update(mx=mx, ns=ns, max_rel_err=err / scale)
+    print(f"[step] expm_pade {tag}: mx={mx} ns={ns} hnorm {float(hp):.3e} "
+          f"max rel err {err / scale:.3e} (limit {F64_RTOL:g}); kernel "
+          f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+          f"torch.linalg.matrix_exp {lib_ms * 1e3:.1f} us (another "
+          f"approximant: the yardstick only), bound {row['bound_ms'] * 1e3:.3f}"
+          f" us ({row['bound_by']})")
+    return row
+
+
+def _columns(tag, model, res, m=30):
+    """The Arnoldi extension on the final (mask, w) of ``res`` to column m,
+    eagerly and through the column graphs (capture, then pure replays):
+    V, H and the status equal bit for bit; µs per column each way."""
+    import torch
+
+    from krylovfspssa_tpu_torch import SolverConfig
+    from krylovfspssa_tpu_torch.krylov.arnoldi import arnoldi_extend
+    from krylovfspssa_tpu_torch.krylov.graphs import ColumnGraphs
+    from krylovfspssa_tpu_torch.ops.stencil import select_stencil_matvec
+
+    mask, w = _final_inputs(res)
+    matvec = select_stencil_matvec(model, res.box, SolverConfig(),
+                                   torch.float64, "cuda")
+    tol = 1e-7
+
+    def fresh(V=None, H=None):
+        """A basis and Hessenberg as a step starts them (in place when
+        given: a graph is keyed by their storage)."""
+        if V is None:
+            V = torch.empty((m + 2, w.numel()), dtype=torch.float64,
+                            device="cuda")
+            H = torch.empty((m + 2, m + 2), dtype=torch.float64,
+                            device="cuda")
+        V.zero_()
+        H.zero_()
+        V[0] = w / torch.linalg.vector_norm(w)
+        return V, H
+
+    def state(st):
+        return torch.stack([st.breakdown.double(), st.mbrkdwn.double(),
+                            st.avnorm, st.nmult.double()])
+
+    def timed(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / m * 1e6
+
+    Ve, He = fresh()
+    ste, eager_us = timed(lambda: arnoldi_extend(
+        lambda x: matvec(mask, x), Ve, He, 1, m, 2, tol))
+    graphs = ColumnGraphs(matvec, mask)
+    graphs.load(mask, tol)
+    runs = []
+    Vg, Hg = fresh()
+    for _ in range(2):  # the first captures, the second only replays
+        fresh(Vg, Hg)
+        stg, us = timed(lambda: arnoldi_extend(None, Vg, Hg, 1, m, 2, tol,
+                                               graphs=graphs))
+        same = (torch.equal(Vg, Ve) and torch.equal(Hg, He)
+                and torch.equal(state(stg), state(ste)))
+        if not same:
+            raise AssertionError(f"[step] {tag}: graph-replayed columns "
+                                 "differ from the eager columns")
+        runs.append(us)
+    if len(graphs) != m + 1:
+        raise AssertionError(f"[step] {tag}: {len(graphs)} graphs for "
+                             f"{m} columns and the avnorm matvec")
+    print(f"[step] columns {tag} (box {res.box.shape}, m={m}): graph "
+          f"replays equal the eager columns bit for bit (V, H, breakdown, "
+          f"mb, avnorm, nmult); {len(graphs)} graphs; per column: eager "
+          f"{eager_us:.1f} us, capture {runs[0]:.1f} us, replay "
+          f"{runs[1]:.1f} us (host wall, synchronised)")
+
+
+def phase_step(toggle_one, goutsias_one):
+    """[step]: the expm_pade kernel vs its plain version on Hessenbergs of
+    the toggle and Goutsias solves (run again off the counted paths) at mx
+    near 12 and 32, and at mx = 102 from a 100-column Arnoldi on the
+    toggle solve's final state; the graph-replayed Arnoldi columns vs the
+    eager ones on the final geometry of each solve.  Returns the mx~32
+    row, with every case under "cases"."""
+    import torch
+
+    from krylovfspssa_tpu_torch.krylov.arnoldi import arnoldi_extend
+    from krylovfspssa_tpu_torch.models.library import (
+        goutsias_model,
+        toggle_file_model,
+    )
+    from krylovfspssa_tpu_torch.ops.stencil import select_stencil_matvec
+
+    t0 = time.perf_counter()
+    with _expm_calls() as kept:
+        _solve(toggle_file_model(), 5.0, [[0, 0]], 1e-4, 1e-10)
+        _solve(goutsias_model(), *GOUTSIAS)
+    torch.cuda.synchronize()
+    calls = [(H, int(mx), float(t)) for H, mx, t in kept]
+    rows = {}
+    for target in (12, 32):
+        H, mx, t = min(calls, key=lambda c: (abs(c[1] - target), -c[1]))
+        rows[f"mx~{target}"] = _expm_case(f"solve mx~{target}", H, mx, t)
+    # mx = 102: the Hessenberg of 100 columns on the toggle solve's end
+    mask, w = _final_inputs(toggle_one)
+    from krylovfspssa_tpu_torch import SolverConfig
+
+    model = toggle_file_model()
+    mv = select_stencil_matvec(model, toggle_one.box, SolverConfig(),
+                               torch.float64, "cuda")
+    MH = 102
+    V = torch.zeros((MH, w.numel()), dtype=torch.float64, device="cuda")
+    V[0] = w / torch.linalg.vector_norm(w)
+    H = torch.zeros((MH, MH), dtype=torch.float64, device="cuda")
+    st = arnoldi_extend(lambda x: mv(mask, x), V, H, 1, MH - 2, 2, 1e-7)
+    if bool(st.breakdown):
+        raise AssertionError("[step] the 100-column Arnoldi broke down")
+    H[MH - 1, MH - 2] = 1.0
+    # the solve's median step (its last one is a happy-breakdown step of
+    # hundreds of time units, past what a 100-column Hessenberg holds)
+    t_med = float(np.median([r.t_step for r in toggle_one.stats.records]))
+    rows["mx=102"] = _expm_case("toggle final, 100 columns", H, MH, t_med)
+    del V
+    _columns("toggle", model, toggle_one)
+    _columns("goutsias", goutsias_model(), goutsias_one)
+    print(f"[step] wall {time.perf_counter() - t0:.2f} s")
+    out = dict(rows["mx~32"])
+    out["cases"] = rows
+    return out
 
 
 def phase_goutsias():
@@ -968,10 +1255,7 @@ def phase_direct_kernels(launches, ge5d, ge5d_box, finals):
 def _solve_input(tag, last, res):
     """The solve's final box and the last (mask, x) ``last`` (a
     _LastInput) caught on it, on the host."""
-    mask, x = last.inputs()
-    if mask.numel() != res.box.volume:
-        raise AssertionError(f"{tag}: last input of {mask.numel()} cells, "
-                             f"final box {res.box.volume}")
+    mask, x = last.inputs(res.box.volume)
     return res.box, (mask, x)
 
 
@@ -1634,7 +1918,7 @@ def phase_sharded_table(one_rank):
             raise AssertionError(f"sharded table rank {o['rank']}: iflag "
                                  f"{iflag}, {o['dtype']}, on card "
                                  f"{o['on_card']}")
-        if o["calls"] < nmult or any(o["launches"].values()):
+        if o["calls"] < nmult or _any_stencil(o["launches"]):
             raise AssertionError(f"rank {o['rank']}: {o['calls']} ELL calls "
                                  f"(nmult {nmult}), launches "
                                  f"{o['launches']}")
@@ -2135,7 +2419,7 @@ def main(argv=None) -> int:
         return phase_toggle(), phase_goutsias()
 
     sep, (toggle_one, goutsias_one) = _path_launches(
-        "separable path", separable, ["box_stencil"])
+        "separable path", separable, ["box_stencil", "expm_pade"])
     if sep["direct_stencil"] or sep["halo_stencil"]:
         raise AssertionError(f"separable models launched another kernel: "
                              f"{sep}")
@@ -2147,7 +2431,7 @@ def main(argv=None) -> int:
 
     cus, (customprop, (ge5d, ge5d_box, ge5d_input, ge5d_one)) = (
         _path_launches("custom path", custom,
-                       ["direct_stencil", "box_stencil"]))
+                       ["direct_stencil", "box_stencil", "expm_pade"]))
     # path 3, the row-sharded solve: halo_stencil in every rank (and the
     # same solve with use_halo=False, counted in its own window)
     shl, gathered = phase_sharded(goutsias_one)
@@ -2158,24 +2442,29 @@ def main(argv=None) -> int:
     # gather-ELL SpMV (torch ops), counted apart from the kernels
     calls = _spmv_calls()
     tab, (ell_op, ell_x, ell_n, table_one) = _path_launches(
-        "table path", lambda: phase_table(toggle_one, goutsias_one), [])
+        "table path", lambda: phase_table(toggle_one, goutsias_one),
+        ["expm_pade"])
     table_calls = _spmv_calls() - calls
-    if any(tab.values()):
+    if _any_stencil(tab):
         raise AssertionError(f"table path launched a stencil kernel: {tab}")
     # path 4b, the row-sharded table (each rank checks that it launched no
     # stencil kernel), and 4c, the pencil operator (torch ops, no kernel)
     phase_sharded_table(table_one)
     pen_tab, pencil_row = _path_launches(
-        "pencil path", lambda: phase_pencil(table_one), [])
-    if any(pen_tab.values()):
+        "pencil path", lambda: phase_pencil(table_one), ["expm_pade"])
+    if _any_stencil(pen_tab):
         raise AssertionError(f"pencil path launched a stencil kernel: "
                              f"{pen_tab}")
     # off the counted paths: the other loop, a non-default budget, profiles
     phase_fused(toggle_one)
     phase_profiles()
+    step = phase_step(toggle_one, goutsias_one)
 
     launches = {k: sep[k] + cus[k] + shl[k] + gathered[k] + sdl[k]
                 for k in sep}
+    # expm_pade runs in every solve, the table paths' too
+    step["launches"] = (launches["expm_pade"] + tab["expm_pade"]
+                        + pen_tab["expm_pade"])
     print(f"[paths] launches of the solve paths: {launches}")
     box = phase_kernels(launches["box_stencil"], {
         "toggle": (toggle_file_model(), toggle_one),
@@ -2216,7 +2505,13 @@ def main(argv=None) -> int:
         "source": sep_source,
         "replaces": "krylovfspssa_tpu/ops/pallas_stencil.py:1828",
         "also_replaces": ["krylovfspssa_tpu/ops/pallas_stencil.py:1496"],
-    }, **halo)]}))
+    }, **halo), dict({
+        "name": "expm_pade",
+        "route": "cuda",
+        "source": "krylovfspssa_tpu_torch/csrc/expm_pade.cu",
+        # the JAX package's XLA expm: not a Pallas kernel
+        "replaces": "krylovfspssa_tpu/ops/expm.py:79",
+    }, **step)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

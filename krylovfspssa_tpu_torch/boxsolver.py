@@ -237,7 +237,7 @@ class BoxCmeSolver:
                 lambda mask: (lambda x: matvec(mask, x)),
                 self._geometry_config(box), op_info,
                 reduce=None if mesh is None else mesh.sum,
-                basis=self._basis,
+                basis=self._basis, graph_matvec=matvec,
             )
             self._fns[key] = _GeometryFns(
                 step=step, matvec=matvec, diag=diag,

@@ -16,7 +16,9 @@ This port keeps the segment structure and its semantics: the events, the
 drop with its anti-thrash gate (``drop_inline``), the expansion by K
 dilation rounds without growth (``expand_inline``) and the per-step records.
 The step controller stays on the host (krylov/stepper.py: numpy scalars,
-one read per Arnoldi column); the segment's own work stays on the device:
+one stacked read per attempt and one per FSP evaluation, the Arnoldi
+columns replayed as CUDA graphs on one card); the segment's own work stays
+on the device:
 
   * the drop is decided and applied on the device (``torch.where``);
   * the records are a host list: every field of a record is a host value
@@ -59,6 +61,7 @@ from ..ops.stencil import (
     make_diag_fn,
     make_dilate_fn,
     select_stencil_matvec,
+    to_device,
 )
 from ..statespace.drop import _N_LEVELS
 from .stepper import StepCarry, make_step_fn
@@ -175,9 +178,8 @@ def make_advance_fn(
     inflow_guard = config.inflow_guard
     drop_fraction = config.drop_fraction
     pressure_cells = config.drop_pressure_frac * box.volume
-    levels = torch.tensor([droptol_start / 10.0 ** i
-                           for i in range(_N_LEVELS)], dtype=_F64,
-                          device=device)
+    levels = to_device([droptol_start / 10.0 ** i
+                        for i in range(_N_LEVELS)], _F64, device)
 
     #: what the last stacked read said about ``seen["mask"]``: its active
     #: cells ``n``, largest diagonal ``dmax`` and face ``touch``
@@ -205,6 +207,9 @@ def make_advance_fn(
     step = make_step_fn(
         lambda mask: (lambda x: matvec(mask, x)), config, op_info,
         reduce=None if mesh is None else mesh.sum, basis=basis,
+        # the solver's matvec, shared with its stepwise loop: on one card
+        # the Arnoldi columns replay as CUDA graphs of it
+        graph_matvec=matvec,
     )
 
     def drop_inline(mask, w, dsum, rate_budget):
@@ -220,8 +225,9 @@ def make_advance_fn(
         sums = total(torch.stack(
             [torch.sum(torch.where(w64 < lev, live, 0.0)) for lev in levels]))
         ok = sums < dsum
-        droptol = torch.where(torch.any(ok),
-                              levels[torch.argmax(ok.to(torch.uint8))],
+        # gather, not levels[t]: a 0-d index tensor would be read back
+        first = torch.argmax(ok.to(torch.uint8)).reshape(1)
+        droptol = torch.where(torch.any(ok), levels.gather(0, first)[0],
                               levels[-1])
         dmask = (w64 < droptol) & mask & ~(inflow > inflow_guard)
         gross = inflow + diag(mask) * w64

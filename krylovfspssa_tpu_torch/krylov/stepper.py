@@ -22,9 +22,26 @@ basis, the Hessenberg and its exponential) stay on the solve's device, and
 the controller's scalars live on the host as numpy float64 / int32 / bool
 values — IEEE double arithmetic with the same inf/NaN semantics as the
 JAX package's x64 scalars, and no dependence on torch's default dtype.
-A scalar is read from the device (``float(...)``) only where a decision
-needs it.  The controller's float32-mode cost-model terms are evaluated in
-float64 (the JAX package mixes in some float32 products there).
+The controller's float32-mode cost-model terms are evaluated in float64
+(the JAX package mixes in some float32 products there).
+
+The host reads the device a bounded number of times per attempted step,
+independent of the Krylov dimension, every read through :func:`read`
+(counted in ``READS``): the Arnoldi extension reads nothing (its
+breakdown, broken column, avnorm and matvec count stay on the device); a
+breakdown sets the expm's block size and time on the device, where the
+``expm_pade`` kernel reads them; then ONE stacked float64 read brings
+back the Arnoldi outcome, E[m,0], E[m+1,0], hnorm and ns, and the
+controller runs its arithmetic.  A NaN retry adds one read, and each FSP
+evaluation one (its mass and the sum of squares that gives the accepted
+step's beta).  On one card the Arnoldi columns replay as CUDA graphs
+(krylov/graphs.py) when the caller names the geometry's matvec.
+
+Two deliberate divergences from the JAX package, both in the FSP
+criterion loop (ROADMAP.md Queue C): a step whose every rejection was an
+overshoot asks for no expansion, and a happy-breakdown step abandoned at
+the criterion's ceiling is taken again with the reference's absolute
+breakdown threshold.
 """
 
 from __future__ import annotations
@@ -42,6 +59,25 @@ from .arnoldi import arnoldi_extend
 _SQR1 = math.sqrt(0.1)
 EPS = float(np.finfo(np.float64).eps)
 _F64 = np.float64
+
+#: the stepper's device reads (each one host sync on the card), a plain
+#: counter a run resets and reads
+READS = 0
+
+
+def read(t: torch.Tensor) -> list:
+    """The values of a 1-d tensor as Python floats: every read of the
+    stepper goes through here, and adds one to ``READS``."""
+    global READS
+    READS += 1
+    return t.tolist()
+
+
+def _pick(cond: torch.Tensor, a: float, b: float) -> torch.Tensor:
+    """A 0-d float64 tensor on cond's device: a where cond, else b (each
+    filled in by a kernel, no host copy)."""
+    return torch.full((), b, dtype=torch.float64,
+                      device=cond.device).masked_fill_(cond, a)
 
 
 def _nint(x):
@@ -176,6 +212,7 @@ def make_step_fn(
     op_info: Callable,
     reduce: Callable | None = None,
     basis: dict | None = None,
+    graph_matvec: Callable | None = None,
 ):
     """Build the single-attempted-step function.
 
@@ -190,10 +227,16 @@ def make_step_fn(
         of a row-sharded box: every sum over the cell axis (Arnoldi dots,
         FSP mass, norms) then runs over all ranks, and every rank takes the
         same branches.  None on one device.
-      basis: the dict that holds the Krylov basis.  Step functions given
-        the same dict share one basis, so that one geometry's basis is
-        freed when another's is allocated; by default each step function
-        keeps its own.
+      basis: the dict that holds the Krylov basis, the Hessenberg and the
+        column graphs.  Step functions given the same dict share one
+        basis, so that one geometry's basis is freed when another's is
+        allocated (with every graph that wrote into it); by default each
+        step function keeps its own.
+      graph_matvec: the box geometry's ``matvec(mask, x)``, or None (the
+        table backend).  On one card (no ``reduce``, ``w`` on a CUDA
+        device) the Arnoldi columns then replay as CUDA graphs of that
+        matvec on the step's mask (krylov/graphs.py), keyed by it; they
+        run eagerly otherwise (the CPU, a mesh, the table backend).
 
     Returns:
       step(op, w, carry, t_out, fsptol, krytol) -> StepResult.  The Krylov
@@ -231,20 +274,53 @@ def make_step_fn(
     def get_basis(w):
         key = (MH, w.shape[0], w.dtype, w.device)
         if basis.get("key") != key:
+            # drops the column graphs that wrote into the old basis too
             basis.clear()
             basis["key"] = key
             basis["V"] = torch.zeros((MH, w.shape[0]), dtype=w.dtype,
                                      device=w.device)
-        return basis["V"]
+            # the Hessenberg is tiny and always float64
+            basis["H"] = torch.zeros((MH, MH), dtype=torch.float64,
+                                     device=w.device)
+            basis["graphs"] = {}
+        return basis["V"], basis["H"]
+
+    def get_graphs(op, w):
+        if graph_matvec is None or reduce is not None \
+                or w.device.type != "cuda":
+            return None
+        graphs = basis["graphs"].get(graph_matvec)
+        if graphs is None:
+            from .graphs import ColumnGraphs
+
+            graphs = basis["graphs"][graph_matvec] = ColumnGraphs(
+                graph_matvec, op)
+        return graphs
 
     def step(op, w, sc: StepCarry, t_out, fsptol, krytol) -> StepResult:
+        args = (_F64(t_out), _F64(fsptol), _F64(krytol))
         with np.errstate(all="ignore"):
-            return _step(op, w, sc, _F64(t_out), _F64(fsptol), _F64(krytol))
+            res, stalled = _step(op, w, sc, *args, scaled_break=True)
+            if not stalled:
+                return res
+            # a happy breakdown whose mass overshoots the criterion's
+            # ceiling at every shrink: its neglected residual gains mass
+            # faster than the ceiling rises, so it would stall there (the
+            # JAX package abandons the step and expands, and the expansions
+            # overflow the box: ROADMAP.md Queue C).  Take the step again
+            # with the reference's absolute breakdown threshold; the
+            # counters keep the abandoned attempt's work.
+            c = res.carry
+            return _step(op, w, sc._replace(
+                nmult=c.nmult, nexph=c.nexph, nscale=c.nscale,
+                nreject=c.nreject), *args, scaled_break=False)[0]
 
-    def _step(op, w, sc, t_out, fsptol, krytol) -> StepResult:
+    def _step(op, w, sc, t_out, fsptol, krytol, scaled_break):
+        """One attempted step: (StepResult, stalled), where ``stalled``
+        says that the step was abandoned at the FSP criterion's ceiling
+        after a happy breakdown (every rejection an overshoot)."""
         matvec = matvec_builder(op)
         f = w.dtype
-        dev = w.device
         info = op_info(op)
         if len(info) == 3:
             n, n_reactions, anorm_est = info
@@ -255,7 +331,9 @@ def make_step_fn(
         # reference's absolute BREAK_TOL=1e-7, KrylovSolver.f90:173,249,
         # assumes ||A|| ~ O(1); CME generators have ||A|| ~ 1e2-1e5).  See
         # the JAX package's stepper.py for the measurements behind 0.1.
-        break_eff = break_tol * np.maximum(1.0, 0.1 * _F64(anorm_est))
+        # A stalled step is taken again with the absolute one (step).
+        break_eff = break_tol * np.maximum(1.0, 0.1 * _F64(anorm_est)) \
+            if scaled_break else _F64(break_tol)
         n = int(n)
         nnz = _F64((n_reactions + 1) * n)  # KrylovSolver.f90:196,537
         nf = _F64(n)
@@ -292,7 +370,7 @@ def make_step_fn(
 
         # ------------------------------------------------ step set-up ----
         wsum_start = (
-            _F64(float(total(torch.sum(w, dtype=torch.float64))))
+            _F64(read(total(torch.sum(w, dtype=torch.float64)).reshape(1))[0])
             if crit_floor else None
         )
         t_step = np.minimum(t_out_abs - sc.t_now, sc.t_new)
@@ -302,10 +380,12 @@ def make_step_fn(
         m = max(min(m, m_max), 1)
         beta = sc.beta
 
-        V = get_basis(w)
+        V, H = get_basis(w)
         V[0] = (w.to(torch.float64) / float(beta)).to(f)
-        # the Hessenberg is tiny and always float64
-        H = torch.zeros((MH, MH), dtype=torch.float64, device=dev)
+        H.zero_()
+        graphs = get_graphs(op, w)
+        if graphs is not None:
+            graphs.load(op, break_eff)
 
         # ---------------------------------------------- attempt loop -----
         jold, needs_arnoldi = 1, True
@@ -326,26 +406,38 @@ def make_step_fn(
         while not accept and not nanfail \
                 and ireject + imreject <= hard_attempts:
             # ---- Arnoldi phase (labels 101-300) -------------------------
+            head = ()
             if needs_arnoldi:
                 st = arnoldi_extend(matvec, V, H, jold, m, qiop, break_eff,
-                                    reduce)
-                brk = st.breakdown
-                k1 = 0 if brk else 2
-                if brk:
-                    t_step = t_out_abs - sc.t_now
-                mbrk = st.mbrkdwn if brk else m
-                avnorm = st.avnorm
+                                    reduce, graphs)
                 needs_arnoldi = False
-                nmult += st.nmult
+                # a breakdown sets the expm's block (mb) and its time (the
+                # rest of the interval) on the device
+                mx_arg = torch.where(st.breakdown, st.mbrkdwn, m + 2)
+                t_arg = _pick(st.breakdown, sgn * (t_out_abs - sc.t_now),
+                              sgn * t_step)
+                head = (st.breakdown.to(torch.float64),
+                        st.mbrkdwn.to(torch.float64), st.avnorm,
+                        st.nmult.to(torch.float64))
+            else:
+                mx_arg, t_arg = mbrk + k1, sgn * t_step
 
             # ---- expm + local error, with NaN tau/5 retry (401-310) -----
-            mx = mbrk + k1
             Hbar = H.clone()
-            Hbar[m + 1, m] = 1.0
+            # fill_, not Hbar[...] = 1.0: an assigned number is a host copy
+            Hbar[m + 1, m].fill_(1.0)
 
-            def expm_err(t_step):
-                E, hnorm, ns = expm_fn(Hbar, mx, sgn * t_step, ideg)
-                e_m, e_m1 = E[m:m + 2, 0].tolist()
+            def expm_read(mx_arg, t_arg, head=()):
+                """The expm and THE read of an attempt: the Arnoldi
+                outcome ``head`` (if any), E[m,0], E[m+1,0], hnorm, ns."""
+                E, hnorm, ns = expm_fn(Hbar, mx_arg, t_arg, ideg)
+                vals = read(torch.stack(
+                    [*head, E[m, 0], E[m + 1, 0], hnorm, ns]))
+                return E, vals
+
+            def local_error(e_m, e_m1):
+                if k1 == 0:
+                    return krytol
                 p1 = abs(e_m) * beta
                 p2 = abs(e_m1) * beta * avnorm
                 if p1 > 10.0 * p2:
@@ -354,20 +446,33 @@ def make_step_fn(
                     err = (p1 * p2) / (p1 - p2)
                 else:
                     err = p1
-                return E, hnorm, ns, (krytol if k1 == 0 else _F64(err))
+                return _F64(err)
 
+            E, vals = expm_read(mx_arg, t_arg, head)
+            if head:
+                brk = vals[0] > 0
+                k1 = 0 if brk else 2
+                mbrk = int(vals[1]) if brk else m
+                avnorm = vals[2]
+                nmult += int(vals[3])
+                if brk:
+                    t_step = t_out_abs - sc.t_now
+                vals = vals[4:]
+            e_m, e_m1, hnorm, ns = vals
+            err_loc = local_error(e_m, e_m1)
+            nexph += 1
+            nscale += int(ns)
             # bounded tau/5 retry (KrylovSolver.f90:307-310 is an unbounded
             # GOTO): a NaN that survives 40 shrinks (5^40 ~ 1e28) is
             # structural, so the step exits with iflag=3
-            E, hnorm, ns, err_loc = expm_err(t_step)
-            nexph += 1
-            nscale += ns
             tries = 0
             while np.isnan(err_loc) and tries < 40:
                 t_step = t_step / 5.0
-                E, hnorm, ns, err_loc = expm_err(t_step)
+                E, (e_m, e_m1, hnorm, ns) = expm_read(mbrk + k1,
+                                                      sgn * t_step)
+                err_loc = local_error(e_m, e_m1)
                 nexph += 1
-                nscale += ns
+                nscale += int(ns)
                 tries += 1
             nanfail = bool(np.isnan(err_loc))
 
@@ -452,7 +557,7 @@ def make_step_fn(
 
         # ------------------------------- FSP criterion loop (442-495) ----
         Hbar = H.clone()
-        Hbar[m + 1, m] = 1.0
+        Hbar[m + 1, m].fill_(1.0)
         if crit_floor:
             # float64 column sums of the basis: the criterion mass is then
             # measured entirely in f64, free of w-assembly rounding noise
@@ -468,25 +573,43 @@ def make_step_fn(
                 return wc
             return torch.clamp_min(wc, 0.0)
 
-        def fsp_check(E, t_step):
-            """(assembled w or None, wsum, ok)."""
+        def fsp_check(E, t_step, ns=None, start=False):
+            """ONE read: (assembled w or None, wsum, ok, short, the other
+            values read).  ``short``: the mass fell below the criterion (a
+            failure that is not an overshoot).  The values are the sum of
+            squares of w (float64 mode), the start vector's (``start``: for
+            a step that may not advance) and ``ns`` (a re-evaluation's
+            squaring count), in that order."""
+            extra = () if ns is None else (ns.reshape(1),)
             if crit_floor:
-                wsum = beta * float(torch.sum(E[:mx, 0] * colsum))
+                vals = read(torch.cat([
+                    torch.sum(E[:mx, 0] * colsum).reshape(1), *extra]))
+                wsum = beta * vals[0]
                 ok = (sc.spent + (wsum_start - wsum)) <= (
                     bound(sc.t_now + t_step) + crit_floor
                 )
-                return None, wsum, bool(ok)
+                return None, wsum, bool(ok), not ok, vals[1:]
             w_c = assemble_w(E)
+            sums = [torch.sum(w_c, dtype=torch.float64),
+                    torch.sum(w_c * w_c, dtype=torch.float64)]
+            if start:
+                w0 = V[0] * float(beta)
+                sums.append(torch.sum(w0 * w0, dtype=torch.float64))
+            vals = read(torch.cat([total(torch.stack(sums)), *extra]))
             # TWO-SIDED float64 mass criterion: true mass never exceeds 1,
             # so an overshoot beyond the budget is equally disqualifying
             # (the reference checks only wsum >= 1 - bound,
             # KrylovSolver.f90:458)
-            wsum = _F64(float(total(torch.sum(w_c, dtype=torch.float64))))
+            wsum = _F64(vals[0])
             b = bound(sc.t_now + t_step)
-            return w_c, wsum, bool((wsum >= 1.0 - b) and (wsum <= 1.0 + b))
+            short = not wsum >= 1.0 - b  # a NaN mass counts as short
+            return (w_c, wsum, bool(not short and wsum <= 1.0 + b),
+                    short, vals[1:])
 
         fc_E, fc_t = E, t_step
-        fc_w, fc_wsum, ok = fsp_check(E, t_step)
+        fc_w, fc_wsum, ok, shortfall, fc_vals = fsp_check(E, t_step,
+                                                          start=fail)
+        start_sq = fc_vals[1] if fail and not crit_floor else None
         irejectfsp, error_old, tau_old, abandon = 0, _F64(1.0), t_step, False
         while not ok and not abandon and not fail:
             # criterion failed: shrink the step via the FSP order model
@@ -513,10 +636,17 @@ def make_step_fn(
             )
             ts = round_2sig(ts, 0.55)
             fc_E, _, ns = expm_fn(Hbar, mx, sgn * ts, ideg)
-            nexph += 1
-            nscale += ns
             error_old, tau_old, fc_t = error, fc_t, ts
-            w_c, fc_wsum, ok = fsp_check(fc_E, fc_t)
+            # the last allowed shrink also reads the start vector's sum of
+            # squares, for an abandoned step's beta
+            want_start = abandon and not crit_floor
+            w_c, fc_wsum, ok, short, fc_vals = fsp_check(
+                fc_E, fc_t, ns, start=want_start)
+            shortfall = shortfall or short
+            if want_start:
+                start_sq = fc_vals[1]
+            nexph += 1
+            nscale += int(fc_vals[-1])
             if w_c is not None:
                 fc_w = w_c
         # a final shrink that satisfies the criterion is an accepted step
@@ -524,7 +654,14 @@ def make_step_fn(
         if crit_floor and not (abandon or fail):
             fc_w = assemble_w(fc_E)
 
-        iexpand = (irejectfsp > 0 or abandon) and not fail
+        fsp_rejected = (irejectfsp > 0 or abandon) and not fail
+        # an accepted step whose every FSP rejection was an overshoot (mass
+        # above 1 + bound: the error of a happy-breakdown step, not a
+        # truncation loss) asks for no expansion: states added with zero
+        # mass cannot lower it.  The JAX package expands on every
+        # rejection; over a breakdown step's horizon of hundreds of time
+        # units those walks can overflow the box (ROADMAP.md Queue C).
+        iexpand = fsp_rejected and (shortfall or abandon)
 
         # --------------------------- post-step bookkeeping (497-550) -----
         # abandon / IFLAG=2 paths return the step's starting vector
@@ -546,7 +683,8 @@ def make_step_fn(
         if crit_floor:
             # f32: pin the stored mass to the f64 bookkeeping (1 - spent)
             target = 1.0 - spent_new
-            actual = float(total(torch.sum(w_final, dtype=torch.float64)))
+            actual = read(total(torch.sum(
+                w_final, dtype=torch.float64)).reshape(1))[0]
             if advanced and actual > 0.0:
                 w_final = w_final * float(target / actual)
             wsum_new = target if advanced else sc.wsum_old
@@ -556,17 +694,22 @@ def make_step_fn(
             dsum_raw = np.maximum(bound(t_now_new) - spent_new, 0.0)
         else:
             dsum_raw = fc_wsum - (1.0 - bound(t_now_new))
-        can_drop = advanced and not done and nstep_new > 1 and not iexpand
+        can_drop = advanced and not done and nstep_new > 1 \
+            and not fsp_rejected
         dsum = dsum_raw if can_drop else _F64(0.0)
 
         # SSA horizon (518-521): when expanding on the first step,
         # t_new := t_step
-        t_new_eff = fc_t if (iexpand and nstep_new == 1) else t_new_acc
+        t_new_eff = fc_t if (fsp_rejected and nstep_new == 1) \
+            else t_new_acc
         t_ssa = np.minimum(t_new_eff, t_out_abs - t_now_new)
 
-        beta_new = math.sqrt(
-            float(total(torch.sum(w_final * w_final, dtype=torch.float64)))
-        )
+        if crit_floor:
+            beta_new = math.sqrt(read(total(torch.sum(
+                w_final * w_final, dtype=torch.float64)).reshape(1))[0])
+        else:
+            # the last FSP read's sum of squares of w_final
+            beta_new = math.sqrt(fc_vals[0] if advanced else start_sq)
         err_final = np.maximum(err_loc, rndoff)
         carry = carry_from_numpy(dict(
             t_now=t_now_new,
@@ -600,6 +743,7 @@ def make_step_fn(
             iflag=(3 if nanfail else 2) if fail else sc.iflag,
             spent=spent_new,
         ))
+        stalled = abandon and brk and not shortfall
         return StepResult(
             w=w_final,
             carry=carry,
@@ -611,6 +755,6 @@ def make_step_fn(
             t_step=float(fc_t),
             m_used=m,
             err_loc=float(err_loc),
-        )
+        ), stalled
 
     return step

@@ -7,13 +7,19 @@ of degree ``ideg`` with scaling-and-squaring, plus the ``hnorm`` output
 (= |t| * inf-norm of H, dgpadm.f:71-83) that feeds the reference's Krylov
 cost model.
 
-The JAX package works on the fixed (m_max+2)^2 matrix with rows/columns
->= mx masked to zero, because its shapes must be static.  PyTorch runs
-eagerly, so the port computes on the leading mx x mx block itself and
-embeds the result in the identity — the same numbers as the masked form,
-whose padding block solves to the identity.  Everything stays float64 on
-the matrix's device; the squaring count is read on the host (one sync),
-because it sets the number of squarings.
+:func:`expm_pade` launches the hand-written kernel ``csrc/expm_pade.cu``
+for a CUDA matrix (it replaces the JAX package's XLA expm,
+``krylovfspssa_tpu/ops/expm.py:79``, which is no Pallas kernel) and takes
+the plain version :func:`expm_pade_plain` for a CPU one.  The kernel reads
+the block size ``mx`` and the time ``t`` from device memory and writes E,
+hnorm and ns there: the stepper hands it the values a breakdown sets on the
+device and reads the outcome once per attempt.  The plain version computes
+on the leading mx x mx block itself and embeds the result in the identity
+-- the same numbers as the JAX package's masked form, whose padding block
+solves to the identity -- and reads mx, t and its squaring count on the
+host.  Both are float64 throughout; ``torch.linalg.matrix_exp`` uses
+another approximant, and the step's error estimate reads E[m:m+2, 0], so
+the port keeps the reference's Padé.
 """
 
 from __future__ import annotations
@@ -22,12 +28,16 @@ import math
 
 import torch
 
+#: number of launches of the ``expm_pade`` kernel (a plain counter a run
+#: resets and reads to show that its exponentials went through the kernel)
+LAUNCHES = 0
+
 
 def solve_plu(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve A X = B by Gaussian elimination with partial pivoting (the
     DGESV of dgpadm.f:145).  The JAX package writes its own LU because TPU
     XLA has no float64 LU; ``torch.linalg.solve`` is an LU with partial
-    pivoting in float64 on every device."""
+    pivoting in float64 (the plain version's; the kernel has its own)."""
     return torch.linalg.solve(A, B)
 
 
@@ -59,30 +69,41 @@ def _embed(block: torch.Tensor, MH: int) -> torch.Tensor:
     return E
 
 
-def expm_pade(H: torch.Tensor, mx: int, t: float, ideg: int = 6):
-    """exp(t * H[:mx,:mx]) embedded in the identity, plus hnorm and ns.
+def _host(x, kind):
+    """A number, or a 0-d tensor read on the host (the plain version's
+    read)."""
+    return kind(x.item()) if isinstance(x, torch.Tensor) else kind(x)
+
+
+def expm_pade_plain(H: torch.Tensor, mx, t, ideg: int = 6):
+    """exp(t * H[:mx,:mx]) embedded in the identity, plus hnorm and ns: the
+    plain PyTorch version of the ``expm_pade`` kernel.
 
     Args:
       H: (MH, MH) float64 Hessenberg workspace (entries outside the
         leading mx block are ignored).
-      mx: active block size.
-      t: time scale (sign included).
+      mx: active block size (an int or a 0-d integer tensor).
+      t: time scale, sign included (a float or a 0-d float64 tensor).
       ideg: Padé degree (reference default 6, KrylovSolver.f90:82).
 
     Returns:
       (E, hnorm, ns): E (MH, MH) float64 on H's device with
       E[:mx,:mx] = exp(t H_mx) and the identity elsewhere; hnorm =
-      |t| * ||H_mx||_inf as a float (the DGPADMNORM output); ns = number
-      of squarings (for the NSCALE counter).
+      |t| * ||H_mx||_inf (the DGPADMNORM output) and ns, the number of
+      squarings (for the NSCALE counter), as 0-d float64 tensors on H's
+      device.
     """
+    mx, t = _host(mx, int), _host(t, float)
     MH = H.shape[0]
     A = H[:mx, :mx].to(torch.float64)
     eye = torch.eye(mx, dtype=torch.float64, device=H.device)
 
     # ---- scaling (dgpadm.f:68-87): ns with ||t*H/2^ns|| < 1/2 ----------
-    hnorm = abs(t) * float(torch.max(torch.sum(torch.abs(A), dim=1)))
+    hnorm = abs(t) * float(torch.max(torch.sum(torch.abs(A), dim=1))) \
+        if mx > 0 else 0.0
     ns = _squarings(hnorm)
-    scale = t / (2.0 ** ns)
+    # 2^ns overflows from ns = 1024 (an infinite hnorm): scale = t / inf
+    scale = t / (2.0 ** ns if ns < 1024 else math.inf)
 
     coef = _pade_coefficients(ideg)
     A2 = (scale * scale) * (A @ A)
@@ -112,7 +133,50 @@ def expm_pade(H: torch.Tensor, mx: int, t: float, ideg: int = 6):
     # ---- squaring: E <- E^(2^ns) (dgpadm.f:157-166) --------------------
     for _ in range(ns):
         E = E @ E
-    return _embed(E, MH), hnorm, ns
+    stats = torch.tensor([hnorm, float(ns)], dtype=torch.float64,
+                         device=H.device)
+    return _embed(E, MH), stats[0], stats[1]
+
+
+def _on_device(x, dtype, device) -> torch.Tensor:
+    """x as a 0-d tensor of ``dtype`` on ``device``: a tensor already there
+    is used as is; a number is filled in by a kernel (no host copy)."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device or x.dtype != dtype or x.dim() != 0:
+            raise ValueError(f"expm_pade: a 0-d {dtype} on {device} "
+                             f"expected, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+        return x
+    return torch.full((), x, dtype=dtype, device=device)
+
+
+def expm_pade(H: torch.Tensor, mx, t, ideg: int = 6):
+    """exp(t * H[:mx,:mx]) embedded in the identity, plus hnorm and ns, as
+    :func:`expm_pade_plain` returns them.  A CUDA ``H`` launches the kernel
+    ``csrc/expm_pade.cu`` on the current stream, without synchronising:
+    ``mx`` (int64) and ``t`` (float64) may be 0-d tensors on H's device,
+    or numbers.  A CPU ``H`` takes the plain version."""
+    global LAUNCHES
+    if H.device.type == "cpu":
+        return expm_pade_plain(H, mx, t, ideg)
+    from .stencil_cuda import _launch, _library
+
+    if H.dtype != torch.float64 or H.dim() != 2 or \
+            H.shape[0] != H.shape[1] or not H.is_contiguous():
+        raise ValueError(f"expm_pade: a contiguous square float64 H "
+                         f"expected, got {H.dtype} {tuple(H.shape)}")
+    dev = H.device
+    MH = H.shape[0]
+    mx = _on_device(mx, torch.int64, dev)
+    t = _on_device(t, torch.float64, dev)
+    E = torch.empty_like(H)
+    stats = torch.empty(2, dtype=torch.float64, device=dev)
+    scratch = torch.empty(3 * MH * MH, dtype=torch.float64, device=dev)
+    _launch("expm_pade", _library().kfs_expm_pade, dev, (
+        H.data_ptr(), mx.data_ptr(), t.data_ptr(), E.data_ptr(),
+        stats.data_ptr(), scratch.data_ptr(), MH, ideg))
+    LAUNCHES += 1
+    return E, stats[0], stats[1]
 
 
 # ------------------------------------------------------------------------
@@ -143,7 +207,7 @@ _CHEB_THETA = (
 )
 
 
-def expm_chebyshev_col0(H: torch.Tensor, mx: int, t: float):
+def expm_chebyshev_col0(H: torch.Tensor, mx, t):
     """First column of exp(t * H[:mx,:mx]) by Chebyshev partial fractions.
 
     The DGCHBV analog (dgchbv.f:2-94): y <- exp(tH) e1 via 7 complex-shifted
@@ -153,11 +217,17 @@ def expm_chebyshev_col0(H: torch.Tensor, mx: int, t: float):
     column 0 holds the result (zero below mx) and whose other entries are
     the identity's.
 
-    Returns (E, hnorm, ns=0) matching the expm_pade interface.
+    Selected by ``ideg=0`` (not the default).  It has no kernel: given
+    0-d tensors for ``mx`` and ``t`` it reads them on the host, one read
+    per call beside the stepper's own.
+
+    Returns (E, hnorm, ns=0) matching the expm_pade interface (hnorm and
+    ns as 0-d float64 tensors on H's device).
     """
+    mx, t = _host(mx, int), _host(t, float)
     MH = H.shape[0]
     A = H[:mx, :mx].to(torch.float64)
-    hnorm = abs(t) * float(torch.max(torch.sum(torch.abs(A), dim=1)))
+    hnorm = abs(t) * torch.max(torch.sum(torch.abs(A), dim=1))
     Ac = (A * t).to(torch.complex128)
     eye = torch.eye(mx, dtype=torch.complex128, device=H.device)
     e1 = torch.zeros((mx, 1), dtype=torch.complex128, device=H.device)
@@ -174,4 +244,4 @@ def expm_chebyshev_col0(H: torch.Tensor, mx: int, t: float):
     E = torch.eye(MH, dtype=torch.float64, device=H.device)
     E[:, 0] = 0.0
     E[:mx, 0] = col
-    return E, hnorm, 0
+    return E, hnorm, torch.zeros((), dtype=torch.float64, device=H.device)

@@ -127,6 +127,13 @@ def dest_valid_masks(box: BoxSpace, device="cpu",
             for k in range(box.stoichiometry.shape[0])]
 
 
+def to_device(array, dtype, device) -> torch.Tensor:
+    """A host array on ``device`` without a host sync: the copy from
+    pageable memory is staged before it returns, so the array may go at
+    once (a blocking copy would wait for the stream)."""
+    return torch.as_tensor(array, dtype=dtype).to(device, non_blocking=True)
+
+
 def _axis_field(box: BoxSpace, tabs_by_species: dict, const: float, dtype,
                 device="cpu", rows=None):
     """Outer product ``const * prod_s tab_s[c_s(z)]`` of per-species 1-D
@@ -139,13 +146,13 @@ def _axis_field(box: BoxSpace, tabs_by_species: dict, const: float, dtype,
     for s, tab in tabs_by_species.items():
         sh = int(box.shift_of_species[s])
         bits = int(box.bits_of_species[s])
-        t = torch.as_tensor(tab, dtype=dtype, device=device)[
+        t = to_device(tab, dtype, device)[
             (flat >> sh) & ((1 << bits) - 1)]
         arr = t if arr is None else arr * t
     if arr is None:
         return torch.full(flat.shape, float(const), dtype=dtype,
                           device=device)
-    return torch.as_tensor(const, dtype=dtype, device=device) * arr
+    return torch.full((), const, dtype=dtype, device=device) * arr
 
 
 def _factored_reaction_tables(model: Model, box: BoxSpace):

@@ -29,7 +29,8 @@ header says what bounds the kernel.
 
 The kernels are compiled on first use with ``nvcc`` into
 ``build/krylovfspssa_tpu_torch/libkfs_kernels.so`` (rebuilt when a source or
-header changes) and bound through ctypes.  Each wrapper takes its plain
+header changes), which also holds ops/expm.py's kernel
+(``csrc/expm_pade.cu``), and bound through ctypes.  Each wrapper takes its plain
 PyTorch version only for tensors on the CPU; for a CUDA tensor it launches
 its kernel or raises.
 """
@@ -57,6 +58,7 @@ from .stencil import (
     _diag_field,
     _factored_reaction_tables,
     make_propensity_evaluator,
+    to_device,
 )
 
 #: number of kernel launches made by :func:`box_stencil` (a plain counter
@@ -113,7 +115,8 @@ def _nvcc() -> str:
 
 def build() -> BuildInfo:
     """Compile ``csrc/*.cu`` (which include ``csrc/*.cuh``) for sm_90a
-    unless the library is up to date with every source and header."""
+    unless the library is up to date with every source and header: one
+    nvcc per source, all started together, then one link."""
     sources = sorted(_CSRC.glob("*.cu"))
     digest = hashlib.sha1()
     for p in sorted(sources + list(_CSRC.glob("*.cuh"))):
@@ -124,22 +127,36 @@ def build() -> BuildInfo:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return BuildInfo(lib, 0.0, "")
     _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = _BUILD / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-I", str(_CSRC), "-o", str(tmp), *map(str, sources),
-    ]
+    nvcc = _nvcc()
+    arch = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+    tag = f"{os.getpid()}.tmp"
+    objs = [_BUILD / f"{src.stem}.{tag}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *arch, "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+         "-I", str(_CSRC), "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = _BUILD / f"{_LIB_NAME}.{tag}"
+    try:
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} (exit "
+                                   f"{proc.returncode}):\n{log}")
+        link = subprocess.run([nvcc, *arch, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):"
+                               f"\n{link.stdout}{link.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
     os.replace(tmp, lib)
     stamp.write_text(digest)
-    return BuildInfo(lib, secs, proc.stdout + proc.stderr)
+    return BuildInfo(lib, secs, "".join(logs))
 
 
 def _library():
@@ -158,6 +175,10 @@ def _library():
                 ctypes.c_void_p
             ]
             fn.restype = ctypes.c_int
+        # ops/expm.py: the Padé exponential
+        lib.kfs_expm_pade.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.kfs_expm_pade.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -278,9 +299,9 @@ def _meta(offsets, facs, device) -> torch.Tensor:
     """int32 [off[R] | start[R+1] | (shift, ext-1, table offset) per
     factor] of the factor lists ``facs``."""
     starts = np.cumsum([0] + [len(fk) for fk in facs]).tolist()
-    return torch.as_tensor(np.array(
+    return to_device(np.array(
         list(offsets) + starts + [v for fk in facs for f in fk for v in f],
-        np.int32), device=device)
+        np.int32), torch.int32, device)
 
 
 def _factor_operands(tables, box: BoxSpace, dtype, device):
@@ -297,10 +318,8 @@ def _factor_operands(tables, box: BoxSpace, dtype, device):
             pos += len(tab)
         facs.append(tuple(fk))
     return dict(
-        tables=torch.as_tensor(np.concatenate(chunks), dtype=dtype,
-                               device=device),
-        consts=torch.tensor([c for c, _, _ in tables], dtype=dtype,
-                            device=device),
+        tables=to_device(np.concatenate(chunks), dtype, device),
+        consts=to_device([c for c, _, _ in tables], dtype, device),
         meta=_meta([int(o) for o in box.offsets], facs, device),
         n_reactions=len(tables),
     ), tuple(facs)
