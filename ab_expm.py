@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""The toggle t=1000 solve under four float64 arithmetics of the
-``expm_pade`` kernel and under its plain version, on one NVIDIA GPU.
+"""The toggle t=1000 solve under the ``expm_pade`` kernel of this checkout,
+under its plain version and, with ``--old``, under another kernel source,
+on one NVIDIA GPU.
 
-    python3 ab_expm.py [--trace]
+    python3 ab_expm.py [--old PATH] [--trace]
 
-Builds four variants of ``krylovfspssa_tpu_torch/csrc/expm_pade.cu`` (one
-nvcc each, in parallel, into ``build/ab_expm/``): the shipped one (every
-product rounded before it is added; back substitution by columns), with
-fused multiply-adds, with the back substitution by rows as the JAX
-package's ``solve_plu`` writes it, and with both.  Each variant is held
-against the plain version on random Hessenbergs (max relative error), then
-drives the reference's TestSolverFromFile toggle (t=1000, fsp_tol 1e-4,
-krylov_tol 1e-10, the default fused loop) through ``solve_cme_box``; the
-plain version (cuBLAS products, cuSOLVER LU) drives it last.  Each line
-gives the solve's outcome: wsum, iflag, steps, matvecs, final box and its
-largest step, or the error that ended it.  The variants are equally
-accurate and the trajectory forks on their round-off, so the lines show
-whether the solve's outcome depends on which fork it takes (ROADMAP.md
-Queue C, the breakdown-step overflow).
+``--old PATH`` names a ``.cu`` file with the same C entry point
+(``kfs_expm_pade``), built with nvcc into ``build/ab_expm/``; an earlier
+commit's kernel, for example::
+
+    mkdir -p build/ab_expm
+    git show 8d164a8:krylovfspssa_tpu_torch/csrc/expm_pade.cu \\
+        > build/ab_expm/pr9.cu
+    python3 ab_expm.py --old build/ab_expm/pr9.cu
+
+Each kernel is first held against the plain version on random Hessenbergs
+(mx 12 to 102: the max relative error).  Then each exponential drives the
+reference's TestSolverFromFile toggle (t=1000, fsp_tol 1e-4, krylov_tol
+1e-10, the default fused loop) through ``solve_cme_box``; every call is
+bracketed by CUDA events, read after the solve.  Each run prints one line:
+wsum, iflag, steps, matvecs, exponentials, wall and the summed expm
+milliseconds, or the error that ended it.  The trajectory forks on the
+exponential's round-off, so steps and wall differ between equally accurate
+arithmetics; the summed expm time is the kernel's share of the wall.  With
+``--old``, that run's exponentials (its fork's inputs) are then replayed
+through every kernel and the plain version: the summed milliseconds on
+one and the same set of calls.
 
 ``--trace`` also prints every attempted step that is longer than 2 time
 units, asks for an expansion or does not advance: its start, length,
@@ -28,79 +36,61 @@ with the mass).
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-SRC = ROOT / "krylovfspssa_tpu_torch" / "csrc" / "expm_pade.cu"
-
-ROUNDED = ("  return __dadd_rn(acc, __dmul_rn(a, b));",
-           "  return __dsub_rn(acc, __dmul_rn(a, b));")
-FUSED = ("  return acc + a * b;", "  return acc - a * b;")
-COLUMNS = """  for (int k = n - 1; k >= 0; --k) {
-    const double d = Q(k, k);
-    for (int j = threadIdx.x; j < n; j += blockDim.x) P(k, j) /= d;
-    __syncthreads();
-    for (int e = threadIdx.x; e < k * n; e += blockDim.x) {
-      const int i = e / n, j = e % n;
-      P(i, j) = msub(P(i, j), Q(i, k), P(k, j));
-    }
-    __syncthreads();
-  }"""
-ROWS = """  for (int k = n - 1; k >= 0; --k) {
-    for (int c = threadIdx.x; c < n; c += blockDim.x) {
-      double acc = 0.0;
-      for (int j = k + 1; j < n; ++j) acc = madd(acc, Q(k, j), P(j, c));
-      P(k, c) = (P(k, c) - acc) / Q(k, k);
-    }
-    __syncthreads();
-  }"""
 
 
-def _variant(fma: bool, rows: bool) -> str:
-    src = SRC.read_text()
-    for old, new in zip(ROUNDED, FUSED) if fma else ():
-        assert src.count(old) == 1, old
-        src = src.replace(old, new)
-    if rows:
-        assert src.count(COLUMNS) == 1
-        src = src.replace(COLUMNS, ROWS)
-    return src
+def _old_kernel(path: Path):
+    """expm_pade(H, mx, t, ideg) through the kfs_expm_pade of the source
+    at ``path`` (its own library), with a scratch of 4 (MH + 16)^2
+    doubles: enough for this checkout's four padded matrices and for an
+    earlier kernel's 3 MH^2."""
+    import torch
 
+    from krylovfspssa_tpu_torch.ops import expm, stencil_cuda
 
-VARIANTS = {
-    "shipped (rounded products, column back substitution)": (False, False),
-    "fused multiply-add": (True, False),
-    "row back substitution (JAX solve_plu)": (False, True),
-    "fused multiply-add, row back substitution": (True, True),
-}
-
-
-def _build(args):
-    i, (fma, rows) = args
     out = ROOT / "build" / "ab_expm"
     out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"v{i}.cu", out / f"v{i}.so"
-    cu.write_text(_variant(fma, rows))
-    from krylovfspssa_tpu_torch.ops.stencil_cuda import _nvcc
-
-    subprocess.run([_nvcc(), "-gencode",
+    so = out / f"{path.stem}.so"
+    subprocess.run([stencil_cuda._nvcc(), "-gencode",
                     "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                    "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(cu)],
-                   check=True)
-    return so
+                    "-shared", "-Xcompiler", "-fPIC", "-o", str(so),
+                    str(path)], check=True)
+    fn = ctypes.CDLL(str(so)).kfs_expm_pade
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def expm_old(H, mx, t, ideg=6):
+        dev, MH = H.device, H.shape[0]
+        mx = expm._on_device(mx, torch.int64, dev)
+        t = expm._on_device(t, torch.float64, dev)
+        E = torch.empty_like(H)
+        stats = torch.empty(2, dtype=torch.float64, device=dev)
+        scratch = torch.empty(4 * (MH + 16) ** 2, dtype=torch.float64,
+                              device=dev)
+        stencil_cuda._launch("expm_pade (--old)", fn, dev, (
+            H.data_ptr(), mx.data_ptr(), t.data_ptr(), E.data_ptr(),
+            stats.data_ptr(), scratch.data_ptr(), MH, ideg))
+        return E, stats[0], stats[1]
+
+    return expm_old
 
 
-def _accuracy(expm) -> float:
+def _accuracy(expm_fn) -> float:
     """Max over random Hessenbergs (mx 12 to 102) of max|E - E_plain| /
     max|E_plain|."""
     import torch
+
+    from krylovfspssa_tpu_torch.ops import expm
 
     rng = np.random.default_rng(0)
     worst = 0.0
@@ -110,29 +100,61 @@ def _accuracy(expm) -> float:
         H[:mx, :mx] = np.triu(rng.random((mx, mx)), -1) * scale
         H[np.arange(mx), np.arange(mx)] = -scale * (1 + rng.random(mx))
         Ht = torch.as_tensor(H, device="cuda")
-        Ek = expm.expm_pade(Ht, mx, t)[0]
+        Ek = expm_fn(Ht, mx, t)[0]
         Ep = expm.expm_pade_plain(Ht, mx, t)[0]
         worst = max(worst, float((Ek - Ep).abs().max() / Ep.abs().max()))
     return worst
 
 
-def _toggle() -> str:
+def _toggle(stepper, expm_fn, keep=False):
+    """The toggle t=1000 solve with ``expm_fn`` as the stepper's
+    exponential, each call bracketed by CUDA events (chip_smoke's
+    ``expm_spy``): its line, and the calls' (Hbar, mx, t, ideg) if
+    ``keep``."""
     import torch
 
+    from chip_smoke import expm_spy
     from krylovfspssa_tpu_torch import solve_cme_box
     from krylovfspssa_tpu_torch.models.library import toggle_file_model
 
+    inner, stepper.expm_pade = stepper.expm_pade, expm_fn
     t0 = time.perf_counter()
     try:
-        r = solve_cme_box(toggle_file_model(), 1000.0, [[0, 0]],
-                          fsp_tol=1e-4, krylov_tol=1e-10)
-        torch.cuda.synchronize()
-    except Exception as e:  # the outcome of this variant, not a failure
-        return f"{type(e).__name__}: {e} after {time.perf_counter() - t0:.2f} s"
-    big = max(rec.t_step for rec in r.stats.records)
-    return (f"wsum {r.wsum!r} iflag {r.stats.iflag} nstep {r.stats.nstep} "
-            f"nmult {r.stats.nmult} box {r.box.shape} largest step {big!r} "
-            f"wall {time.perf_counter() - t0:.2f} s")
+        with expm_spy(keep) as calls:
+            r = solve_cme_box(toggle_file_model(), 1000.0, [[0, 0]],
+                              fsp_tol=1e-4, krylov_tol=1e-10)
+            torch.cuda.synchronize()
+    except Exception as e:  # the outcome of this run, not a failure
+        return (f"{type(e).__name__}: {e} after "
+                f"{time.perf_counter() - t0:.2f} s"), []
+    finally:
+        stepper.expm_pade = inner
+    wall = time.perf_counter() - t0
+    ms = sum(a.elapsed_time(b) for a, b, _, _ in calls)
+    s = r.stats
+    return (f"wsum {r.wsum!r} iflag {s.iflag} nstep {s.nstep} nmult "
+            f"{s.nmult} nexph {s.nexph} box {r.box.shape} wall {wall:.2f} s "
+            f"summed expm {ms:.1f} ms over {len(calls)} calls"), \
+        [inputs for *_, inputs in calls if inputs is not None]
+
+
+def _replay(calls, expm_fn) -> float:
+    """Summed milliseconds of ``expm_fn`` over the kept calls (a warm-up
+    pass first; events around each call)."""
+    import torch
+
+    for H, mx, t, ideg in calls[:8]:
+        expm_fn(H, mx, t, ideg)
+    events = []
+    for H, mx, t, ideg in calls:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        expm_fn(H, mx, t, ideg)
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events)
 
 
 def _trace(stepper, advance, boxsolver) -> None:
@@ -168,37 +190,46 @@ def _trace(stepper, advance, boxsolver) -> None:
     advance.make_step_fn = boxsolver.make_step_fn = make_step_fn
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", type=Path,
+                    help="another expm_pade.cu to drive the solve with")
+    ap.add_argument("--trace", action="store_true",
+                    help="print the long, expanding and rejected steps")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_expm: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     from krylovfspssa_tpu_torch import boxsolver
     from krylovfspssa_tpu_torch.krylov import advance, stepper
-    from krylovfspssa_tpu_torch.ops import expm, stencil_cuda
+    from krylovfspssa_tpu_torch.ops import expm
 
-    if "--trace" in sys.argv[1:]:
+    if args.trace:
         _trace(stepper, advance, boxsolver)
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"[ab_expm] {smi}; torch {torch.__version__}")
-    lib = stencil_cuda._library()
-    with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        libs = list(ex.map(_build, enumerate(VARIANTS.values())))
-    for name, so in zip(VARIANTS, libs):
-        fn = ctypes.CDLL(str(so)).kfs_expm_pade
-        fn.argtypes = lib.kfs_expm_pade.argtypes
-        fn.restype = ctypes.c_int
-        lib.kfs_expm_pade = fn
-        print(f"[ab_expm] {name}: max rel err vs plain "
-              f"{_accuracy(expm):.2e}; toggle t=1000: {_toggle()}",
-              flush=True)
-    stepper.expm_pade = expm.expm_pade_plain
-    print(f"[ab_expm] plain version: toggle t=1000: {_toggle()}")
+    runs = [("kernel (csrc/expm_pade.cu)", expm.expm_pade)]
+    if args.old is not None:
+        runs.append((f"--old {args.old}", _old_kernel(args.old)))
+    runs.append(("plain version", expm.expm_pade_plain))
+    kept = []
+    for name, fn in runs:
+        acc = ("" if fn is expm.expm_pade_plain else
+               f"max rel err vs plain {_accuracy(fn):.2e}; ")
+        line, inputs = _toggle(stepper, fn, keep=name.startswith("--old"))
+        kept += inputs
+        print(f"[ab_expm] {name}: {acc}toggle t=1000: {line}", flush=True)
+    if kept:
+        # the same exponentials (the --old run's fork) through each
+        times = ", ".join(f"{name} {_replay(kept, fn):.1f} ms"
+                          for name, fn in runs)
+        print(f"[ab_expm] the --old run's {len(kept)} exponentials "
+              f"replayed: {times}")
     return 0
 
 

@@ -69,12 +69,16 @@ paths:
      t=10, toggle_programmatic t=5 and the library ge5d;
   5b. ``[step]``: the ``expm_pade`` kernel (csrc/expm_pade.cu, every
      attempted step's Padé exponential) vs its plain version on
-     Hessenbergs that the toggle and Goutsias solves hand it (mx near 12
-     and 32) and on a 100-column one from the toggle solve's end (mx =
+     Hessenbergs that the toggle and Goutsias solves hand it (mx near 12,
+     32 and 64) and on a 100-column one from the toggle solve's end (mx =
      102), with ``torch.linalg.matrix_exp`` on the same block as the
-     yardstick; the Arnoldi columns replayed as CUDA graphs
-     (krylov/graphs.py) against the same columns run eagerly, bit for bit,
-     on the final geometries of those solves.  ``[profile]`` also counts
+     yardstick and the bound of one SM (the kernel is one thread block)
+     beside the card's; phase 2's toggle t=1000 prints its mx histogram
+     and its exponentials' summed kernel time (CUDA events around each
+     call, read after the solve) beside its wall; the Arnoldi columns
+     replayed as CUDA graphs (krylov/graphs.py) against the same columns
+     run eagerly, bit for bit, on the final geometries of those solves.
+     ``[profile]`` also counts
      the matvecs that ran after a breakdown, and fails if the one-card
      fused toggle or toggle_programmatic t=5 shows more than
      ``MAX_SYNCS_PER_STEP`` host syncs per attempted step;
@@ -163,6 +167,11 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: the float64 tensor cores' peak (the same data sheet): the bound of
 #: expm_pade, whose work is dense float64 matrix products and an LU
 PEAK_FLOPS_F64_MMA = 67e12
+#: its streaming multiprocessors: expm_pade runs in one thread block, on
+#: one of them
+SM_COUNT = 132
+#: NVLink between two cards of the host, each way (the same data sheet)
+NVLINK_BYTES_PER_S = 450e9
 
 #: the ge5d scenario of tests/test_models_e2e.py (x0 = 0, fsp_tol 1e-4,
 #: krylov_tol 1e-8, box_min_log2 2) at its horizon; the fused loop keeps
@@ -644,12 +653,21 @@ TOGGLE = (1000.0, [[0, 0]], 1e-4, 1e-10)
 
 
 def phase_toggle():
-    """Returns the solve's result."""
+    """Returns the solve's result.  Each exponential of the solve is
+    bracketed by CUDA events (read after it): the mx histogram and the
+    summed expm_pade time print beside the wall."""
     from krylovfspssa_tpu_torch.models.library import toggle_file_model
 
-    solver, res, launches, wall = _solve(toggle_file_model(), *TOGGLE)
+    with expm_spy() as timed:
+        solver, res, launches, wall = _solve(toggle_file_model(), *TOGGLE)
     _print_solve("toggle", solver, res, launches, wall)
     _check_solve("toggle", solver, res, launches, 1 - 1e-4, 1 + 1e-4)
+    ms, hist = _expm_summary(timed)
+    s = res.stats
+    print(f"[toggle] expm_pade: {len(timed)} calls (nexph {s.nexph}), mx "
+          f"by tile (8 ceil(mx / 8): calls) {hist}, summed kernel "
+          f"{ms:.1f} ms (events around each call) of the solve's "
+          f"{wall:.2f} s wall; nstep {s.nstep} nmult {s.nmult}")
     return res
 
 
@@ -916,24 +934,46 @@ def phase_profiles():
 
 
 @contextlib.contextmanager
-def _expm_calls():
-    """While active, every exponential a stepper asks for is kept as
-    (Hbar, mx, t): the kernel's inputs on that solve path (the stepper
-    never writes an Hbar again, so they are kept by reference)."""
+def expm_spy(keep=False):
+    """While active, every exponential a stepper asks for is bracketed by
+    two CUDA events on the current stream (nothing is read back during
+    the solve): yields a list of (start, end, mx, inputs) to read after
+    it, where inputs is the call's (Hbar, mx, t, ideg) if ``keep``, else
+    None (the stepper never writes an Hbar again, so they are kept by
+    reference)."""
+    import torch
+
     from krylovfspssa_tpu_torch.krylov import stepper
 
     inner = stepper.expm_pade
-    kept = []
+    calls = []
 
     def spy(H, mx, t, ideg=6):
-        kept.append((H, mx, t))
-        return inner(H, mx, t, ideg)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(H, mx, t, ideg)
+        b.record()
+        calls.append((a, b, mx, (H, mx, t, ideg) if keep else None))
+        return out
 
     stepper.expm_pade = spy
     try:
-        yield kept
+        yield calls
     finally:
         stepper.expm_pade = inner
+
+
+def _expm_summary(calls):
+    """(summed ms, {8 ceil(mx / 8): calls}) of expm_spy's calls."""
+    import collections
+
+    import torch
+
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b, _, _ in calls)
+    hist = collections.Counter(8 * -(-int(mx) // 8) for _, _, mx, _ in calls)
+    return ms, dict(sorted(hist.items()))
 
 
 def _expm_flops(n, ns, ideg=6) -> float:
@@ -972,13 +1012,18 @@ def _expm_case(tag, H, mx, t):
     row = _row(err, ms, plain_ms,
                _bound(8 * (mx * mx + H.numel()), _expm_flops(mx, ns),
                       torch.float64, PEAK_FLOPS_F64_MMA), lib_ms, None)
-    row.update(mx=mx, ns=ns, max_rel_err=err / scale)
+    # the kernel is one thread block: one SM's share of the tensor cores
+    sm_bound_ms = _expm_flops(mx, ns) / (PEAK_FLOPS_F64_MMA / SM_COUNT) * 1e3
+    row.update(mx=mx, ns=ns, max_rel_err=err / scale,
+               sm_bound_ms=sm_bound_ms)
     print(f"[step] expm_pade {tag}: mx={mx} ns={ns} hnorm {float(hp):.3e} "
           f"max rel err {err / scale:.3e} (limit {F64_RTOL:g}); kernel "
           f"{ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
           f"torch.linalg.matrix_exp {lib_ms * 1e3:.1f} us (another "
           f"approximant: the yardstick only), bound {row['bound_ms'] * 1e3:.3f}"
-          f" us ({row['bound_by']})")
+          f" us ({row['bound_by']}; the card), one-SM bound "
+          f"{sm_bound_ms * 1e3:.1f} us (operations at 1/{SM_COUNT} of the "
+          f"float64 tensor cores' rate)")
     return row
 
 
@@ -1052,10 +1097,12 @@ def _columns(tag, model, res, m=30):
 def phase_step(toggle_one, goutsias_one):
     """[step]: the expm_pade kernel vs its plain version on Hessenbergs of
     the toggle and Goutsias solves (run again off the counted paths) at mx
-    near 12 and 32, and at mx = 102 from a 100-column Arnoldi on the
+    near 12, 32 and 64, and at mx = 102 from a 100-column Arnoldi on the
     toggle solve's final state; the graph-replayed Arnoldi columns vs the
     eager ones on the final geometry of each solve.  Returns the mx~32
-    row, with every case under "cases"."""
+    row, the kernels JSON line's expm_pade entry, with every case under
+    "cases" (toggle t=1000 spends most of its exponential time at mx of
+    89 to 104: the mx=102 case)."""
     import torch
 
     from krylovfspssa_tpu_torch.krylov.arnoldi import arnoldi_extend
@@ -1066,13 +1113,13 @@ def phase_step(toggle_one, goutsias_one):
     from krylovfspssa_tpu_torch.ops.stencil import select_stencil_matvec
 
     t0 = time.perf_counter()
-    with _expm_calls() as kept:
+    with expm_spy(keep=True) as kept:
         _solve(toggle_file_model(), 5.0, [[0, 0]], 1e-4, 1e-10)
         _solve(goutsias_model(), *GOUTSIAS)
     torch.cuda.synchronize()
-    calls = [(H, int(mx), float(t)) for H, mx, t in kept]
+    calls = [(H, int(mx), float(t)) for _, _, _, (H, mx, t, _) in kept]
     rows = {}
-    for target in (12, 32):
+    for target in (12, 32, 64):
         H, mx, t = min(calls, key=lambda c: (abs(c[1] - target), -c[1]))
         rows[f"mx~{target}"] = _expm_case(f"solve mx~{target}", H, mx, t)
     # mx = 102: the Hessenberg of 100 columns on the toggle solve's end
@@ -1884,9 +1931,24 @@ def _sharded_table_rank(mesh):
     torch.cuda.synchronize(mesh.device)
     mesh.barrier()
     matvec_us = (time.perf_counter() - t1) / n * 1e6
+    # its bound: this rank's ELL bytes (as [ell] counts them, over its
+    # rows below the global active count op.n) over the card's memory rate
+    # plus the all_gather's (P - 1)/P of the global vector (vl.cells
+    # entries) over NVLink's rate each way
+    rows = op.diag.shape[0]
+    act = min(max(int(op.n) - mesh.rank * rows, 0), rows)
+    R, item = op.pred_idx.shape[1], x.element_size()
+    ell_bytes = act * R * (op.pred_idx.element_size()
+                           + op.pred_prop.element_size() + item) \
+        + 3 * act * item
+    gather_bytes = (mesh.size - 1) / mesh.size * item * vl.cells
+    bound_us = (ell_bytes / HBM_BYTES_PER_S
+                + gather_bytes / NVLINK_BYTES_PER_S) * 1e6
     return dict(rank=mesh.rank, device=str(mesh.device), wall=wall,
+                bound_us=bound_us, ell_bytes=ell_bytes,
+                gather_bytes=gather_bytes,
                 calls=calls, launches=launches, on_card=on_card,
-                rows=op.diag.shape[0], capacity=vl.cells,
+                rows=rows, capacity=vl.cells,
                 matvec_us=matvec_us, dtype=str(solver.dtype),
                 stats=(res.stats.iflag, res.stats.nstep, res.stats.nmult,
                        res.stats.n_expansions),
@@ -1913,7 +1975,10 @@ def phase_sharded_table(one_rank):
               f"{o['calls']} launches {o['launches']} wall {o['wall']:.2f} "
               f"s; sharded ELL matvec (all_gather included) "
               f"{o['matvec_us']:.1f} us per call on {o['rows']} of "
-              f"{o['capacity']} rows")
+              f"{o['capacity']} rows; bound {o['bound_us']:.2f} us "
+              f"({o['ell_bytes'] / 1e6:.3f} MB of ELL at 3.35 TB/s + "
+              f"{o['gather_bytes'] / 1e6:.3f} MB of all_gather at NVLink's "
+              f"450 GB/s each way; no single library call)")
         if iflag != 0 or o["dtype"] != "torch.float64" or not o["on_card"]:
             raise AssertionError(f"sharded table rank {o['rank']}: iflag "
                                  f"{iflag}, {o['dtype']}, on card "
@@ -1935,6 +2000,7 @@ def phase_sharded_table(one_rank):
         raise AssertionError(f"sharded table solve: wsum {res.wsum}, L1 "
                              f"{l1:.3e}")
     return dict(matvec_us=[o["matvec_us"] for o in outs],
+                bound_us=[o["bound_us"] for o in outs],
                 calls=sum(o["calls"] for o in outs))
 
 

@@ -150,6 +150,24 @@ def _on_device(x, dtype, device) -> torch.Tensor:
     return torch.full((), x, dtype=dtype, device=device)
 
 
+def _scratch_doubles(MH: int, device: torch.device) -> int:
+    """The global scratch (doubles) the kernel needs for an (MH, MH)
+    workspace on ``device``: 0 while its operands fit in shared memory
+    (the library reads the device's limit once and keeps it)."""
+    from .stencil_cuda import _library
+
+    fn = _library().kfs_expm_pade_scratch
+    if device.index == torch.cuda.current_device():
+        need = fn(MH)
+    else:
+        with torch.cuda.device(device):
+            need = fn(MH)
+    if need < 0:
+        raise RuntimeError("expm_pade: the device's attributes could not "
+                           "be read")
+    return need
+
+
 def expm_pade(H: torch.Tensor, mx, t, ideg: int = 6):
     """exp(t * H[:mx,:mx]) embedded in the identity, plus hnorm and ns, as
     :func:`expm_pade_plain` returns them.  A CUDA ``H`` launches the kernel
@@ -171,10 +189,13 @@ def expm_pade(H: torch.Tensor, mx, t, ideg: int = 6):
     t = _on_device(t, torch.float64, dev)
     E = torch.empty_like(H)
     stats = torch.empty(2, dtype=torch.float64, device=dev)
-    scratch = torch.empty(3 * MH * MH, dtype=torch.float64, device=dev)
+    need = _scratch_doubles(MH, dev)
+    scratch = (torch.empty(need, dtype=torch.float64, device=dev)
+               if need else None)
     _launch("expm_pade", _library().kfs_expm_pade, dev, (
         H.data_ptr(), mx.data_ptr(), t.data_ptr(), E.data_ptr(),
-        stats.data_ptr(), scratch.data_ptr(), MH, ideg))
+        stats.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        MH, ideg))
     LAUNCHES += 1
     return E, stats[0], stats[1]
 

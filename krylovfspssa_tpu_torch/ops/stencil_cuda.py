@@ -179,6 +179,8 @@ def _library():
         lib.kfs_expm_pade.argtypes = [ctypes.c_void_p] * 6 + [
             ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.kfs_expm_pade.restype = ctypes.c_int
+        lib.kfs_expm_pade_scratch.argtypes = [ctypes.c_int]
+        lib.kfs_expm_pade_scratch.restype = ctypes.c_longlong
         _lib = lib
     return _lib
 

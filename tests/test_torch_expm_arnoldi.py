@@ -53,6 +53,60 @@ def test_expm_pade_matches_jax(mx, t, scale):
                                atol=1e-12 * np.abs(Ej).max())
 
 
+#: (MH, mx, t, scale, ideg, bad): mx at every residue of the expm_pade
+#: kernel's 8-column and 16-row tiles (ideg 5, 6 and 7 in turn, so odd
+#: parity meets ns = 0 at the small blocks); MH beyond the kernel's
+#: shared-memory design, and at 144 beyond its LU panel in registers; a
+#: negative t; hnorm = 0 by t and by the block; an
+#: infinite or NaN entry (``bad``) in the block.  tests/test_torch_step_cuda.py
+#: holds the kernel against the plain version on the same inputs.
+EXPM_EDGES = (
+    [(102, mx, 0.3, 2.0, 5 + mx % 3, None)
+     for mx in (*range(1, 18), 31, 32, 33, 63, 64, 65, *range(95, 103))]
+    + [(128, 126, 0.3, 2.0, 6, None), (128, 100, 0.5, 2.0, 7, None),
+       (144, 140, 0.3, 2.0, 6, None), (144, 140, 0.3, 2.0, 7, None),
+       (40, 9, -0.7, 2.0, 5, None), (40, 10, 0.0, 1.0, 7, None),
+       (40, 10, 0.5, 0.0, 6, None), (40, 10, 0.5, 2.0, 6, np.nan),
+       (40, 10, 0.5, 2.0, 5, np.inf), (40, 10, 0.5, 2.0, 6, -np.inf)]
+)
+
+
+def expm_edge_input(MH, mx, scale, bad):
+    """The Hessenberg workspace of one EXPM_EDGES case (numpy)."""
+    H = _hessenberg(np.random.default_rng(1000 + mx), MH, mx, scale)
+    if bad is not None:
+        H[3, 4] = bad
+    return H
+
+
+def assert_expm_close(E, hnorm, ns, E_ref, hnorm_ref, ns_ref):
+    """E to 1e-12 x max|E_ref| where E_ref is finite and NaN where it is
+    NaN; hnorm equal (both NaN, or to 1e-14) and ns equal."""
+    assert ns == ns_ref
+    if np.isnan(hnorm_ref):
+        assert np.isnan(hnorm)
+    else:
+        assert hnorm == pytest.approx(hnorm_ref, rel=1e-14)
+    nan = np.isnan(E_ref)
+    np.testing.assert_array_equal(np.isnan(E), nan)
+    if not nan.all():
+        scale = np.abs(E_ref[~nan]).max()
+        np.testing.assert_allclose(E[~nan], E_ref[~nan], rtol=0,
+                                   atol=1e-12 * scale)
+
+
+@pytest.mark.parametrize("MH,mx,t,scale,ideg,bad", EXPM_EDGES)
+def test_expm_pade_edges_match_jax(MH, mx, t, scale, ideg, bad):
+    """The plain version -- the yardstick of the expm_pade kernel on the
+    card -- against the JAX package's expm on the kernel's edge inputs."""
+    H = expm_edge_input(MH, mx, scale, bad)
+    Ej, hj, nsj = jexpm.expm_pade(jnp.asarray(H), jnp.asarray(mx),
+                                  jnp.asarray(t), ideg)
+    Et, ht, nst = texpm.expm_pade_plain(torch.from_numpy(H), mx, t, ideg)
+    assert_expm_close(Et.numpy(), float(ht), int(nst), np.asarray(Ej),
+                      float(hj), int(nsj))
+
+
 @pytest.mark.parametrize("mx,t,scale", [(10, 0.5, 1.0), (25, 3.0, 10.0)])
 def test_expm_chebyshev_matches_jax(mx, t, scale):
     rng = np.random.default_rng(100 + mx)

@@ -28,36 +28,87 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("mx,t,scale", [(1, 0.5, 1.0), (12, 0.7, 1.0),
-                                        (32, 2.5, 40.0), (64, 1.0, 5.0),
-                                        (96, 0.3, 3.0), (97, 0.3, 3.0),
-                                        (102, 0.2, 2.0), (20, 30.0, 300.0),
-                                        (5, 0.0, 1.0)])
-def test_expm_kernel_matches_plain(cuda_device, mx, t, scale):
-    """Shared-memory (mx <= 96) and global-scratch blocks, hnorm 0, many
-    squarings: E to 1e-12 x max|E|, hnorm and ns equal; one launch.  The
-    block is a generator's transpose (its columns sum to -0.1 scale), so
-    exp(tH) stays bounded; garbage fills the rest of the workspace."""
-    MH = 102
+def _generator_input(MH, mx, scale):
+    """A block that is a generator's transpose (its columns sum to -0.1
+    scale, so exp(tH) stays bounded); garbage fills the rest of the
+    workspace."""
     rng = np.random.default_rng(mx)
     H = rng.normal(size=(MH, MH))
     B = np.triu(rng.random((mx, mx)), -1) * scale
     np.fill_diagonal(B, 0.0)
     B[np.arange(mx), np.arange(mx)] = -B.sum(axis=0) - 0.1 * scale
     H[:mx, :mx] = B
+    return H
+
+
+def _hessenberg_input(MH, mx, scale, bad):
+    """tests/test_torch_expm_arnoldi.py's edge input (there the plain
+    version is held against the JAX package on it): a stable
+    upper-Hessenberg block, garbage around it, ``bad`` at (3, 4)."""
+    rng = np.random.default_rng(1000 + mx)
+    H = rng.normal(size=(MH, MH))
+    H[:mx, :mx] = np.triu(rng.random((mx, mx)), -1) * scale
+    H[np.arange(mx), np.arange(mx)] = -scale * (1 + rng.random(mx))
+    if bad is not None:
+        H[3, 4] = bad
+    return H
+
+
+#: (block, MH, mx, t, scale, ideg, bad).  Generator blocks: shared memory,
+#: hnorm 0, many squarings.  Hessenberg blocks: mx at every residue of the
+#: kernel's 8-column and 16-row tiles (ideg 5, 6 and 7 in turn: odd parity
+#: with ns = 0 at the small blocks), MH = 128 beyond the shared-memory
+#: design (the global scratch), MH = 144 with mx = 140 (its first LU
+#: panels are taller than a warp's registers hold: the panel factored in
+#: memory), a negative t, hnorm 0 by t and by the block, an infinite or
+#: NaN entry.
+EXPM_CASES = (
+    [("generator", 102, mx, t, scale, 6, None)
+     for mx, t, scale in [(1, 0.5, 1.0), (12, 0.7, 1.0), (32, 2.5, 40.0),
+                          (64, 1.0, 5.0), (96, 0.3, 3.0), (97, 0.3, 3.0),
+                          (102, 0.2, 2.0), (20, 30.0, 300.0), (5, 0.0, 1.0)]]
+    + [("hessenberg", 102, mx, 0.3, 2.0, 5 + mx % 3, None)
+       for mx in (*range(1, 18), 31, 32, 33, 63, 64, 65, *range(95, 103))]
+    + [("hessenberg", *case) for case in [
+        (128, 126, 0.3, 2.0, 6, None), (128, 100, 0.5, 2.0, 7, None),
+        (144, 140, 0.3, 2.0, 6, None), (144, 140, 0.3, 2.0, 7, None),
+        (40, 9, -0.7, 2.0, 5, None), (40, 10, 0.0, 1.0, 7, None),
+        (40, 10, 0.5, 0.0, 6, None), (40, 10, 0.5, 2.0, 6, np.nan),
+        (40, 10, 0.5, 2.0, 5, np.inf), (40, 10, 0.5, 2.0, 6, -np.inf)]]
+)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("block,MH,mx,t,scale,ideg,bad", EXPM_CASES)
+def test_expm_kernel_matches_plain(cuda_device, block, MH, mx, t, scale,
+                                   ideg, bad):
+    """The kernel against its plain version: E to 1e-12 x max|E| where the
+    plain E is finite and NaN where it is NaN, hnorm and ns equal; one
+    launch.  The plain version runs on the CPU, where
+    tests/test_torch_expm_arnoldi.py holds it against the JAX package (on
+    the card torch.linalg.solve raises on a system that a NaN or an
+    infinity made singular)."""
+    H = (_generator_input(MH, mx, scale) if block == "generator"
+         else _hessenberg_input(MH, mx, scale, bad))
     Ht = torch.as_tensor(H, device=cuda_device)
     before = expm.LAUNCHES
     Ek, hk, nk = expm.expm_pade(
         Ht, torch.tensor(mx, device=cuda_device),
-        torch.tensor(t, dtype=torch.float64, device=cuda_device))
+        torch.tensor(t, dtype=torch.float64, device=cuda_device), ideg)
     assert expm.LAUNCHES == before + 1
-    Ep, hp, np_ = expm.expm_pade_plain(Ht, mx, t)
+    Ep, hp, np_ = expm.expm_pade_plain(torch.as_tensor(H), mx, t, ideg)
     torch.cuda.synchronize()
     assert int(nk) == int(np_)
-    assert float(hk) == pytest.approx(float(hp), rel=1e-12)
-    scale_e = float(Ep.abs().max())
-    assert float((Ek - Ep).abs().max()) <= 1e-12 * scale_e
+    if np.isnan(float(hp)):
+        assert np.isnan(float(hk))
+    else:
+        assert float(hk) == pytest.approx(float(hp), rel=1e-12)
+    Ek, Ep = Ek.cpu().numpy(), Ep.numpy()
+    nan = np.isnan(Ep)
+    np.testing.assert_array_equal(np.isnan(Ek), nan)
+    if not nan.all():
+        scale_e = np.abs(Ep[~nan]).max()
+        assert np.abs(Ek[~nan] - Ep[~nan]).max() <= 1e-12 * scale_e
 
 
 @pytest.mark.requires_cuda
