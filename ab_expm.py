@@ -19,8 +19,9 @@ Each kernel is first held against the plain version on random Hessenbergs
 reference's TestSolverFromFile toggle (t=1000, fsp_tol 1e-4, krylov_tol
 1e-10, the default fused loop) through ``solve_cme_box``; every call is
 bracketed by CUDA events, read after the solve.  Each run prints one line:
-wsum, iflag, steps, matvecs, exponentials, wall and the summed expm
-milliseconds, or the error that ended it.  The trajectory forks on the
+wsum, iflag, steps, matvecs, exponentials, wall, the summed expm
+milliseconds and the breakdown steps the stepper took again
+(``stepper.RETAKES``, by cause), or the error that ended it.  The trajectory forks on the
 exponential's round-off, so steps and wall differ between equally accurate
 arithmetics; the summed expm time is the kernel's share of the wall.  With
 ``--old``, that run's exponentials (its fork's inputs) are then replayed
@@ -28,10 +29,11 @@ through every kernel and the plain version: the summed milliseconds on
 one and the same set of calls.
 
 ``--trace`` also prints every attempted step that is longer than 2 time
-units, asks for an expansion or does not advance: its start, length,
-mass, and the values of each of its device reads (an attempt's read
-starts with the breakdown flag and the broken column; an FSP evaluation's
-with the mass).
+units, asks for an expansion, does not advance or was taken again: its
+start, length, mass, the cause of a retake, and the values of each of its
+device reads (an attempt's read starts with the breakdown flag and the
+broken column; an FSP evaluation's with the mass; a retaken step shows
+both attempts' reads).
 """
 
 from __future__ import annotations
@@ -118,6 +120,8 @@ def _toggle(stepper, expm_fn, keep=False):
     from krylovfspssa_tpu_torch.models.library import toggle_file_model
 
     inner, stepper.expm_pade = stepper.expm_pade, expm_fn
+    for k in stepper.RETAKES:
+        stepper.RETAKES[k] = 0
     t0 = time.perf_counter()
     try:
         with expm_spy(keep) as calls:
@@ -134,7 +138,8 @@ def _toggle(stepper, expm_fn, keep=False):
     s = r.stats
     return (f"wsum {r.wsum!r} iflag {s.iflag} nstep {s.nstep} nmult "
             f"{s.nmult} nexph {s.nexph} box {r.box.shape} wall {wall:.2f} s "
-            f"summed expm {ms:.1f} ms over {len(calls)} calls"), \
+            f"summed expm {ms:.1f} ms over {len(calls)} calls retakes "
+            f"{dict(stepper.RETAKES)}"), \
         [inputs for *_, inputs in calls if inputs is not None]
 
 
@@ -173,14 +178,18 @@ def _trace(stepper, advance, boxsolver) -> None:
 
         def traced(op, w, sc, t_out, fsptol, krytol):
             reads.clear()
+            before = dict(stepper.RETAKES)
             r = step(op, w, sc, t_out, fsptol, krytol)
-            if r.t_step > 2.0 or r.iexpand or not r.advanced:
+            retake = [k for k, v in stepper.RETAKES.items()
+                      if v != before[k]]
+            if r.t_step > 2.0 or r.iexpand or not r.advanced or retake:
                 vals = " | ".join(",".join(f"{x:.10g}" for x in v)
                                   for v in reads)
                 print(f"[ab_expm]   t={float(sc.t_now):.6g} step "
                       f"{r.t_step:.6g} wsum {r.wsum!r} advanced "
                       f"{r.advanced} expand {r.iexpand} (SSA horizon "
-                      f"{r.t_ssa:.4g}) cells {w.numel()}; reads {vals}")
+                      f"{r.t_ssa:.4g}) cells {w.numel()} retake "
+                      f"{','.join(retake) or '-'}; reads {vals}")
             return r
 
         return traced

@@ -109,7 +109,16 @@ paths:
   9. ``[ell]``: the table path's gather-ELL SpMV on the last operator and
      final w of the Goutsias t=30 solve of 4b: its time, its bound (the
      bytes it needs over 3.35 TB/s), one CSR SpMV of the same operator
-     and the SpMV calls on the table path.
+     and the SpMV calls on the table path;
+  10. ``[bench]``: ``kfs-torch bench --scale 64`` in a subprocess: the
+     stencil kernels (``box_stencil`` and ``direct_stencil``, float64
+     and float32) in 400 chained matvecs on the 4,194,304-cell Goutsias
+     box against the stored-CSR memory roofline; its JSON line and each
+     variant's line (µs per matvec, both rooflines, launches).
+
+Every solve line also prints the breakdown steps the stepper took again
+(krylov/stepper.py ``RETAKES``, by cause).  Toggle t=1000, box, in both
+loops, must end off the FSP criterion's ceiling: wsum <= 1 + 1e-6.
 
 ``--table-flagship`` runs the reference's Goutsias horizon, t=300, on the
 table backend alone, in the default fused loop (iflag 0 and wsum >= 1 -
@@ -542,6 +551,21 @@ def _reset_launches():
     expm.LAUNCHES = 0
 
 
+def _reset_retakes():
+    from krylovfspssa_tpu_torch.krylov import stepper
+
+    for k in stepper.RETAKES:
+        stepper.RETAKES[k] = 0
+
+
+def _retakes() -> dict:
+    """The breakdown steps the stepper took again since the last reset, by
+    cause (krylov/stepper.py ``RETAKES``)."""
+    from krylovfspssa_tpu_torch.krylov import stepper
+
+    return dict(stepper.RETAKES)
+
+
 def _any_stencil(launches) -> bool:
     return any(launches[k] for k in STENCILS)
 
@@ -584,6 +608,7 @@ def _solve(model, t, x0, fsp_tol, krylov_tol, config=None):
     from krylovfspssa_tpu_torch import BoxCmeSolver
 
     solver = BoxCmeSolver(model, config, device="cuda")
+    _reset_retakes()
     before = _launches()
     t0 = time.perf_counter()
     with _counting_segments(solver):
@@ -631,7 +656,7 @@ def _print_solve(tag, solver, res, launches, wall):
           f"nexph {s.nexph} expansions {s.n_expansions} drops {s.n_drops} "
           f"fsp {s.final_fsp_size} box {res.box.shape} vol {res.box.volume} "
           f"m_eff {solver.m_eff(res.box)} wsum {res.wsum:.10f} "
-          f"launches {launches} wall {wall:.2f} s")
+          f"retakes {_retakes()} launches {launches} wall {wall:.2f} s")
 
 
 def _l1(a, b) -> float:
@@ -650,6 +675,24 @@ def _l1(a, b) -> float:
 
 
 TOGGLE = (1000.0, [[0, 0]], 1e-4, 1e-10)
+#: toggle t=1000 must end off the FSP criterion's ceiling (1 + fsp_tol at
+#: t_out): a breakdown step that gains mass is taken again
+#: (krylov/stepper.py), so the solve keeps its mass within this of 1
+TOGGLE_MAX_GAIN = 1e-6
+
+
+def _check_toggle(tag, res):
+    """toggle t=1000 off the criterion's ceiling.  Its step count is
+    printed, not gated: it is set by the time of the first happy
+    breakdown under the scaled threshold, which moves with round-off
+    (PERF.md §6)."""
+    s = res.stats
+    print(f"[{tag}] toggle t=1000: nstep {s.nstep} nmult {s.nmult} wsum "
+          f"{res.wsum!r} retakes {_retakes()} (limit: wsum <= 1 + "
+          f"{TOGGLE_MAX_GAIN:g})")
+    if not res.wsum <= 1 + TOGGLE_MAX_GAIN:
+        raise AssertionError(f"{tag}: toggle t=1000 ends at wsum "
+                             f"{res.wsum!r}, on the criterion's ceiling")
 
 
 def phase_toggle():
@@ -662,6 +705,7 @@ def phase_toggle():
         solver, res, launches, wall = _solve(toggle_file_model(), *TOGGLE)
     _print_solve("toggle", solver, res, launches, wall)
     _check_solve("toggle", solver, res, launches, 1 - 1e-4, 1 + 1e-4)
+    _check_toggle("toggle", res)
     ms, hist = _expm_summary(timed)
     s = res.stats
     print(f"[toggle] expm_pade: {len(timed)} calls (nexph {s.nexph}), mx "
@@ -722,6 +766,7 @@ def phase_fused(fused):
     _print_solve("fused", solver, res, launches, wall)
     _check_solve("fused: stepwise toggle", solver, res, launches,
                  1 - 1e-4, 1 + 1e-4)
+    _check_toggle("fused", res)
     l1 = _l1(res, fused)
     print(f"[fused] toggle t=1000: stepwise nstep {res.stats.nstep} nmult "
           f"{res.stats.nmult} wall {wall:.2f} s, fused nstep "
@@ -746,6 +791,7 @@ def phase_fused(fused):
 
     probe = BoxCmeSolver(model, SolverConfig(max_steps_per_call=5),
                          device="cuda")
+    _reset_retakes()
     before = _launches()
     t1 = time.perf_counter()
     with _spied(probe, "_shrink_if_loose", spy), _counting_segments(probe):
@@ -2114,6 +2160,7 @@ def _solve_table(model, t, x0, fsp_tol, krylov_tol, config=None):
     from krylovfspssa_tpu_torch import CmeSolver
 
     solver = CmeSolver(model, config, device="cuda")
+    _reset_retakes()
     calls = _spmv_calls()
     t0 = time.perf_counter()
     with _table_spy(solver):
@@ -2148,8 +2195,9 @@ def _print_table(tag, solver, res, calls, wall, peak_gib):
           f"expansions {s.n_expansions} drops {s.n_drops} fsp "
           f"{s.final_fsp_size} capacity {res.table.capacity} m_eff "
           f"{solver._m_eff(res.table.capacity)} key words "
-          f"{res.table.encoder.n_words} wsum {res.wsum:.10f} ELL SpMV calls "
-          f"{calls} wall {wall:.2f} s peak device memory {peak_gib:.2f} GiB")
+          f"{res.table.encoder.n_words} wsum {res.wsum!r} retakes "
+          f"{_retakes()} ELL SpMV calls {calls} wall {wall:.2f} s peak "
+          f"device memory {peak_gib:.2f} GiB")
 
 
 def _table_solve(tag, model, scenario, box_result=None):
@@ -2346,6 +2394,48 @@ def phase_ell(op, x, n, calls):
           f"{library_ms * 1e3:.1f} us; SpMV calls on the table path {calls}")
     return dict(ms=ms, bound_ms=bound[0], bound_by=bound[1],
                 library_ms=library_ms, calls=calls)
+
+
+BENCH_SCALE = 64
+BENCH_ITERS = 400
+
+
+def phase_bench() -> dict:
+    """[bench]: ``kfs-torch bench --scale 64`` (4,194,304 cells) in a
+    subprocess on the card: it must exit 0 with one JSON line of value > 0,
+    and each variant must have launched its kernel at least once per
+    chained matvec.  Returns {variant: (us per matvec, launches)}."""
+    import re
+
+    t0 = time.perf_counter()
+    # the load guard is off: this run's own earlier phases raise the
+    # host's 1-minute load average
+    out = subprocess.run(
+        [sys.executable, "-m", "krylovfspssa_tpu_torch.cli", "bench",
+         "--scale", str(BENCH_SCALE), "--ignore-load"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    for line in out.stderr.splitlines():
+        print(f"[bench]   {line}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines:
+        print(f"[bench] {line}")
+    if out.returncode != 0:
+        raise AssertionError(f"kfs-torch bench exited {out.returncode}")
+    if len(lines) != 1 or not json.loads(lines[0])["value"] > 0:
+        raise AssertionError(f"kfs-torch bench printed {lines}")
+    rows = {}
+    for m in re.finditer(r"^(\S+): (\S+) us/matvec .* launches (\d+)$",
+                         out.stderr, re.M):
+        rows[m.group(1)] = (float(m.group(2)), int(m.group(3)))
+    names = [f"{k}-{d}" for k in ("box_stencil", "direct_stencil")
+             for d in ("f64", "f32")]
+    for name in names:
+        if name not in rows or rows[name][1] < BENCH_ITERS:
+            raise AssertionError(f"[bench] {name}: {rows.get(name)} (at "
+                                 f"least {BENCH_ITERS} launches)")
+    print(f"[bench] wall {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 def table_flagship(smi) -> int:
@@ -2547,6 +2637,11 @@ def main(argv=None) -> int:
     halo = phase_halo(goutsias_one.box, launches["halo_stencil"])
     phase_ell(ell_op, ell_x, ell_n, table_calls)
     del ell_op, ell_x
+    bench = phase_bench()
+    for row, kernel in ((box, "box_stencil"), (direct, "direct_stencil")):
+        row["bench"] = {d: {"us_per_matvec": bench[f"{kernel}-{d}"][0],
+                            "launches": bench[f"{kernel}-{d}"][1]}
+                        for d in ("f64", "f32")}
     print(f"[pencil] summary: {json.dumps(pencil_row)}")
 
     print(f"[total] wall {time.perf_counter() - t_start:.1f} s")

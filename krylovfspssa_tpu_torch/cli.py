@@ -19,7 +19,8 @@ every process then solves its rows on ``--device`` and rank 0 prints
 
 ``kfs-torch models`` lists the built-in model library (all seven models,
 custom-propensity ones included, solve on both devices); ``kfs-torch
-info`` prints a model summary.
+info`` prints a model summary; ``kfs-torch bench`` times the stencil
+kernels against the stored-CSR memory roofline (bench.py).
 """
 
 from __future__ import annotations
@@ -270,6 +271,12 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from .bench import run
+
+    return run(args)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="kfs-torch",
@@ -343,6 +350,13 @@ def main(argv=None) -> int:
     pi = sub.add_parser("info", help="print a model summary")
     pi.add_argument("model")
     pi.set_defaults(fn=cmd_info)
+
+    from .bench import add_arguments
+
+    pb = sub.add_parser("bench", help="time the stencil kernels against the "
+                        "stored-CSR memory roofline (one JSON line)")
+    add_arguments(pb)
+    pb.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

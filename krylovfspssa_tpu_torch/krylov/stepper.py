@@ -37,11 +37,14 @@ evaluation one (its mass and the sum of squares that gives the accepted
 step's beta).  On one card the Arnoldi columns replay as CUDA graphs
 (krylov/graphs.py) when the caller names the geometry's matvec.
 
-Two deliberate divergences from the JAX package, both in the FSP
-criterion loop (ROADMAP.md Queue C): a step whose every rejection was an
-overshoot asks for no expansion, and a happy-breakdown step abandoned at
-the criterion's ceiling is taken again with the reference's absolute
-breakdown threshold.
+Deliberate divergences from the JAX package, all in the FSP criterion
+loop (ROADMAP.md Queue C): a step whose every rejection was an overshoot
+asks for no expansion; and a happy-breakdown step is taken again, once,
+with the reference's absolute breakdown threshold when it was abandoned at
+the criterion's ceiling, or when the criterion accepted it although its
+mass rose above the step's start by more than an accepted step's error,
+and with none when it was abandoned short of the criterion (``RETAKES``
+counts the three causes).
 """
 
 from __future__ import annotations
@@ -63,6 +66,12 @@ _F64 = np.float64
 #: the stepper's device reads (each one host sync on the card), a plain
 #: counter a run resets and reads
 READS = 0
+#: happy-breakdown steps taken again, by cause: ``"ceiling"`` (abandoned
+#: at the FSP criterion's ceiling) and ``"gain"`` (accepted with a mass
+#: gain beyond the step's error), both retaken with the absolute breakdown
+#: threshold, and ``"short"`` (abandoned below the criterion), retaken with
+#: none; a run resets and reads it as it does ``READS``
+RETAKES = {"ceiling": 0, "gain": 0, "short": 0}
 
 
 def read(t: torch.Tensor) -> list:
@@ -300,25 +309,38 @@ def make_step_fn(
     def step(op, w, sc: StepCarry, t_out, fsptol, krytol) -> StepResult:
         args = (_F64(t_out), _F64(fsptol), _F64(krytol))
         with np.errstate(all="ignore"):
-            res, stalled = _step(op, w, sc, *args, scaled_break=True)
-            if not stalled:
+            res, retake = _step(op, w, sc, *args, None)
+            if retake is None:
                 return res
-            # a happy breakdown whose mass overshoots the criterion's
-            # ceiling at every shrink: its neglected residual gains mass
-            # faster than the ceiling rises, so it would stall there (the
+            # a happy breakdown whose neglected residual moved the mass:
+            # abandoned at the criterion's ceiling ("ceiling": it gains
+            # faster than the ceiling rises, so it would stall there; the
             # JAX package abandons the step and expands, and the expansions
-            # overflow the box: ROADMAP.md Queue C).  Take the step again
-            # with the reference's absolute breakdown threshold; the
-            # counters keep the abandoned attempt's work.
+            # overflow the box), accepted below it ("gain": the exact step
+            # cannot raise the mass, and the gains carry the solve up to
+            # the ceiling), or abandoned short of the criterion ("short":
+            # where the loss is the breakdown's own, no expansion recovers
+            # it, and the JAX loops retry the step without end; ROADMAP.md
+            # Queue C).  Take the step again, once, so that the Arnoldi
+            # process runs on under error control: with the reference's
+            # absolute breakdown threshold, or, after a shortfall, none
+            # (that breakdown may have been under the absolute one
+            # already).  The counters keep the first attempt's work.
+            RETAKES[retake] += 1
             c = res.carry
             return _step(op, w, sc._replace(
                 nmult=c.nmult, nexph=c.nexph, nscale=c.nscale,
-                nreject=c.nreject), *args, scaled_break=False)[0]
+                nreject=c.nreject), *args,
+                0.0 if retake == "short" else _F64(break_tol))[0]
 
-    def _step(op, w, sc, t_out, fsptol, krytol, scaled_break):
-        """One attempted step: (StepResult, stalled), where ``stalled``
-        says that the step was abandoned at the FSP criterion's ceiling
-        after a happy breakdown (every rejection an overshoot)."""
+    def _step(op, w, sc, t_out, fsptol, krytol, retake_tol):
+        """One attempted step with the breakdown threshold ``retake_tol``
+        (None: scaled to the operator norm): (StepResult, retake), where
+        ``retake`` is None, or the cause for which a happy-breakdown step
+        is to be taken again: ``"ceiling"``, abandoned at the FSP
+        criterion's ceiling (every rejection an overshoot), ``"gain"``,
+        accepted with its mass above the step's start by more than the
+        step's error, or ``"short"``, abandoned after a shortfall."""
         matvec = matvec_builder(op)
         f = w.dtype
         info = op_info(op)
@@ -331,9 +353,9 @@ def make_step_fn(
         # reference's absolute BREAK_TOL=1e-7, KrylovSolver.f90:173,249,
         # assumes ||A|| ~ O(1); CME generators have ||A|| ~ 1e2-1e5).  See
         # the JAX package's stepper.py for the measurements behind 0.1.
-        # A stalled step is taken again with the absolute one (step).
+        # A breakdown step taken again (step) uses the absolute one or none.
         break_eff = break_tol * np.maximum(1.0, 0.1 * _F64(anorm_est)) \
-            if scaled_break else _F64(break_tol)
+            if retake_tol is None else retake_tol
         n = int(n)
         nnz = _F64((n_reactions + 1) * n)  # KrylovSolver.f90:196,537
         nf = _F64(n)
@@ -743,7 +765,19 @@ def make_step_fn(
             iflag=(3 if nanfail else 2) if fail else sc.iflag,
             spent=spent_new,
         ))
-        stalled = abandon and brk and not shortfall
+        # an accepted step's mass may exceed its start by its error
+        # (omega <= delta) and by the round-off of the float64 sum and of
+        # w's rounding to its dtype; a breakdown step beyond that gained
+        # mass through its neglected residual (the FSP generator is
+        # sub-stochastic)
+        mass0 = wsum_start if crit_floor else sc.wsum_old
+        allowance = delta * krytol * fc_t \
+            + (n * EPS + torch.finfo(f).eps) * mass0
+        retake = None
+        if abandon and brk:
+            retake = "short" if shortfall else "ceiling"
+        elif advanced and brk and fc_wsum - mass0 > allowance:
+            retake = "gain"
         return StepResult(
             w=w_final,
             carry=carry,
@@ -755,6 +789,6 @@ def make_step_fn(
             t_step=float(fc_t),
             m_used=m,
             err_loc=float(err_loc),
-        ), stalled
+        ), retake
 
     return step

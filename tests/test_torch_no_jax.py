@@ -25,6 +25,7 @@ import krylovfspssa_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
+assert "krylovfspssa_tpu_torch.bench" in mods
 import krylovfspssa_tpu_torch.ops.halo
 from krylovfspssa_tpu_torch.krylov.advance import RECORD_FIELDS, make_advance_fn
 import krylovfspssa_tpu_torch.parallel.dryrun

@@ -11,7 +11,15 @@ against the JAX package's step from the same carry.
    shrink (its projected generator grows mass faster than the ceiling
    rises) is not abandoned: the port takes the step again with the
    reference's absolute breakdown threshold, where the JAX package returns
-   the start vector and asks for an expansion."""
+   the start vector and asks for an expansion.
+3. A happy breakdown that the criterion accepts below the ceiling, but
+   whose mass rose above the step's start by more than an accepted step's
+   error, is taken again the same way (the JAX package keeps the gain).
+4. A happy breakdown abandoned after falling short, on a chain that
+   loses almost no mass (so no expansion can help), is taken again without
+   a breakdown threshold (the JAX package returns the start vector and
+   expands, and a solve repeats the step without end).  A birth-death
+   solve that stalls so in the JAX package ends in the port."""
 
 import jax
 import jax.numpy as jnp
@@ -166,3 +174,175 @@ def test_stall_at_ceiling_retakes_without_breakdown():
     # its counters keep the abandoned attempt's work
     assert int(tr.carry.nexph) > int(jr.carry.nexph)
     assert int(tr.carry.nmult) > int(jr.carry.nmult)
+
+
+def _bd_steps(bump, anorm, t_out, t_now, krytol, dtype=np.float64,
+              fsptol=1e-4):
+    """Each package's step of the ``_birth_death`` chain from w = the
+    quasi-stationary vector + ``bump`` (in ``dtype``; the matvec in
+    float64) at t_now of t_out, with the operator-norm estimate ``anorm``
+    (which scales the breakdown threshold).  Returns (JAX result, port
+    result, the carry, mass at the start, the port's reads and retakes
+    during its step)."""
+    Q, p = _birth_death()
+    n = Q.shape[0]
+    w = (p + bump).astype(dtype)
+    jQ, tQ = jnp.asarray(Q), torch.from_numpy(Q)
+    jfn = jax.jit(jstep.make_step_fn(
+        lambda op: (lambda x: (jQ @ x.astype(jnp.float64)).astype(x.dtype)),
+        JConfig(), op_info=lambda op: (jnp.int32(n), 2, anorm)))
+    tfn = tstep.make_step_fn(
+        lambda op: (lambda x: (tQ @ x.double()).to(x.dtype)),
+        SolverConfig(), lambda op: (n, 2, anorm))
+    mass0 = float(w.astype(np.float64).sum())
+    carry = {k: np.asarray(v) for k, v in jstep.initial_carry(
+        float(np.linalg.norm(w.astype(np.float64))), t_out, krytol, 1.0,
+        30)._asdict().items()}
+    carry.update(t_now=np.float64(t_now), t_new=np.float64(1.0),
+                 wsum_old=np.float64(mass0), nstep=np.int32(10))
+    jr = jfn(jnp.ones(n, bool), jnp.asarray(w), jstep.StepCarry(
+        **{k: jnp.asarray(v) for k, v in carry.items()}),
+        jnp.asarray(t_out), jnp.asarray(fsptol), jnp.asarray(krytol))
+    reads, retakes = tstep.READS, dict(tstep.RETAKES)
+    tr = tfn(torch.ones(n, dtype=torch.bool), torch.from_numpy(w.copy()),
+             carry_from_numpy(carry), t_out, fsptol, krytol)
+    retakes = {k: v - retakes[k] for k, v in tstep.RETAKES.items()}
+    return jr, tr, carry, mass0, tstep.READS - reads, retakes
+
+
+def _allowance(krytol, t_step, mass0, eps, n=40):
+    """The port's allowance for an accepted step's mass gain."""
+    return 1.2 * krytol * t_step + (n * np.finfo(np.float64).eps
+                                    + eps) * mass0
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_breakdown_gain_below_ceiling_retakes(dtype):
+    """Below the ceiling (mass 1 at t_now = t_out / 2 in float64): the JAX
+    step accepts a column-1 breakdown whose mass rises by more than the
+    allowance; the port takes it again without the breakdown and keeps the
+    mass.  In float32 (one-sided criterion, krylov_tol at its floor) the
+    allowance admits a gain of about 1.2 krylov_tol per time unit, so the
+    case takes a longer horizon and a larger bump."""
+    if dtype == np.float64:
+        amp, anorm, t_out, krytol = 1e-6, 2e4, 1e4, 1e-10
+    else:
+        amp, anorm, t_out, krytol = 1e-4, 4e6, 1e5, 3.5e-4
+    bump = np.zeros(40)
+    bump[8], bump[9] = amp, -amp
+    jr, tr, carry, mass0, reads, retakes = _bd_steps(
+        bump, anorm, t_out, 5e3, krytol, dtype)
+    eps = float(np.finfo(dtype).eps)
+    # JAX: the breakdown step is accepted with its gain
+    assert int(jr.carry.ibrkflag) == 1 and bool(jr.advanced)
+    assert float(jr.wsum) - mass0 > _allowance(krytol, float(jr.t_step),
+                                               mass0, eps)
+    # the port: taken again without the breakdown, and accepted
+    assert retakes == {"ceiling": 0, "gain": 1, "short": 0}
+    assert tr.advanced and not tr.iexpand
+    assert int(tr.carry.ibrkflag) == 0 and int(tr.carry.iflag) == 0
+    assert tr.wsum <= mass0 + _allowance(krytol, tr.t_step, mass0, eps)
+    assert float(tr.carry.t_now) == pytest.approx(5e3 + tr.t_step,
+                                                  rel=1e-15)
+    # its counters keep the first attempt's work (at least JAX's step)
+    assert int(tr.carry.nexph) > int(jr.carry.nexph) - int(carry["nexph"])
+    assert int(tr.carry.nmult) > int(jr.carry.nmult) - int(carry["nmult"])
+    # one read per attempt (two), one per expm after it and, in float32,
+    # the start mass, the pinned mass and the beta of each attempt
+    extra = 2 if dtype == np.float64 else 2 + 2 * 3
+    assert reads == int(tr.carry.nexph) - int(carry["nexph"]) + extra
+
+
+def test_breakdown_without_gain_is_not_retaken():
+    """The quasi-stationary vector itself: column 1 breaks down, the step
+    loses only the chain's true leak, and both packages take the same
+    step.  (The step's exp(tau * h11) turns an ulp of the Rayleigh quotient
+    h11 into tau ulps of w: the remaining horizon is 1000.)"""
+    jr, tr, carry, mass0, reads, retakes = _bd_steps(
+        np.zeros(40), 2e4, 1e4, 9e3, 1e-10)
+    assert retakes == {"ceiling": 0, "gain": 0, "short": 0}
+    assert int(jr.carry.ibrkflag) == 1 and int(tr.carry.ibrkflag) == 1
+    assert tr.advanced and bool(jr.advanced)
+    assert tr.wsum <= mass0
+    assert reads == int(tr.carry.nexph) - int(carry["nexph"]) + 1
+    wj = np.asarray(jr.w)
+    np.testing.assert_allclose(tr.w.numpy(), wj, rtol=0,
+                               atol=1e-12 * np.abs(wj).max())
+    for k in ("t_now", "t_new", "wsum_old", "beta", "nexph", "nmult",
+              "nstep", "mbrkdwn"):
+        assert float(getattr(tr.carry, k)) == pytest.approx(
+            float(getattr(jr.carry, k)), rel=1e-12), k
+
+
+@pytest.mark.parametrize("amp", [1e-6, 1e-7])
+def test_breakdown_short_retakes_without_threshold(amp):
+    """A bump that makes the Rayleigh quotient negative: column 1 breaks
+    down and loses mass that the chain does not lose, every shrink falls
+    short, and the JAX step is abandoned and asks for an expansion (which
+    cannot help: the loss is the breakdown's).  The port takes the step
+    again with no breakdown threshold, and advances with the true leak."""
+    bump = np.zeros(40)
+    bump[8], bump[9] = -amp, amp
+    jr, tr, carry, mass0, reads, retakes = _bd_steps(
+        bump, 2e4, 1e4, 5e3, 1e-10)
+    assert int(jr.carry.ibrkflag) == 1
+    assert not bool(jr.advanced) and bool(jr.iexpand)
+    assert retakes == {"ceiling": 0, "gain": 0, "short": 1}
+    assert tr.advanced and not tr.iexpand
+    assert int(tr.carry.ibrkflag) == 0 and int(tr.carry.iflag) == 0
+    assert 0.0 <= mass0 - tr.wsum <= 1e-9
+    assert reads == int(tr.carry.nexph) - int(carry["nexph"]) + 2
+    assert int(tr.carry.nexph) > int(jr.carry.nexph) - int(carry["nexph"])
+
+
+#: models/birth_death_model.input (kp 1, kd 0.1) from X = 10, its
+#: stationary mean, to t = 200 at fsp_tol 1e-6, at most 60 attempted steps
+BD_STALL = dict(t=200.0, x0=[[10]], fsp_tol=1e-6, krylov_tol=1e-10)
+BD_MXSTEP = 60
+
+
+def _bd_model(load_model):
+    from _birth_death import PATH
+
+    model = load_model(PATH)
+    model.reset_parameters([1.0, 0.1])
+    return model
+
+
+def test_birth_death_stalls_in_jax():
+    """Near stationarity column 1 breaks down and loses mass at every
+    shrink, and the JAX stepwise loop retries that step until it runs out
+    of attempts (the port ends within the same cap, below)."""
+    from krylovfspssa_tpu.boxsolver import solve_cme_box as jsolve
+    from krylovfspssa_tpu.models.model import load_model
+
+    args = dict(BD_STALL)
+    with pytest.raises(RuntimeError, match=f"exceeded {BD_MXSTEP} attempted"):
+        jsolve(_bd_model(load_model), args.pop("t"), args.pop("x0"),
+               config=JConfig(fused_steps=False, mxstep=BD_MXSTEP), **args)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_birth_death_solve_ends(fused):
+    """The birth-death solve that stalls in the JAX package: the port
+    takes the breakdown step again without a threshold and ends within
+    fsp_tol of the closed form, with no mass gained, within the cap of
+    attempted steps that the JAX loop exceeds."""
+    from _birth_death import exact
+
+    from krylovfspssa_tpu_torch import solve_cme_box
+    from krylovfspssa_tpu_torch.models.model import load_model
+
+    before = dict(tstep.RETAKES)
+    args = dict(BD_STALL)
+    r = solve_cme_box(_bd_model(load_model), args.pop("t"), args.pop("x0"),
+                      device="cpu", config=SolverConfig(
+                          fused_steps=fused, mxstep=BD_MXSTEP), **args)
+    assert tstep.RETAKES["short"] > before["short"]
+    assert r.stats.iflag == 0 and r.stats.t_final == 200.0
+    assert 1.0 - 1e-6 <= r.wsum <= 1.0 + 1e-6
+    n_max = int(r.states[:, 0].max())
+    got = np.zeros(n_max + 1)
+    got[r.states[:, 0]] = r.probabilities
+    ref = exact(n_max, x0=10, t=200.0)
+    assert float(np.abs(got - ref).sum()) + (1.0 - ref.sum()) <= 2e-6
