@@ -148,7 +148,6 @@ JAX.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import json
 import statistics
 import subprocess
@@ -1657,8 +1656,7 @@ def _sharded_rank(mesh, args):
         rank=mesh.rank, device=str(mesh.device), dtype=str(solver.dtype),
         launches=launches, wall=wall, peak_gib=peak_gib, no_halo=no_halo,
         profile=profile,
-        records=[dataclasses.replace(r, wall_s=0.0)
-                 for r in res.stats.records],
+        records=list(res.stats.records),
         result=res if mesh.rank == 0 else None,
         stats=(res.stats.iflag, res.stats.nstep, res.stats.nmult,
                res.stats.nreject),
@@ -1874,8 +1872,7 @@ def _sharded_direct_rank(mesh):
                 dtype=str(solver.dtype), launches=_launches(), wall=wall,
                 peak_gib=torch.cuda.max_memory_allocated(mesh.device)
                 / 2 ** 30,
-                records=[dataclasses.replace(r, wall_s=0.0)
-                         for r in res.stats.records],
+                records=list(res.stats.records),
                 stats=(res.stats.iflag, res.stats.nstep, res.stats.nmult),
                 result=res if mesh.rank == 0 else None)
 

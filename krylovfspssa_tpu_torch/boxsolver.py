@@ -67,6 +67,7 @@ from .ops.stencil import (
 from .parallel.multihost import host_gather
 from .statespace.drop import drop_loss_rate, drop_mask_device
 from .utils.stats import SolverStats, StepRecord
+from .utils.trace import span, spanned
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
@@ -212,38 +213,42 @@ class BoxCmeSolver:
         """Per-box-geometry step/matvec/diag/dilation masks (cached)."""
         key = (box.log2, box.axis_of_species)
         if key not in self._fns:
-            mesh = self.mesh
-            matvec = select_stencil_matvec(
-                self.model, box, self.config, self._dtype, self.device,
-                mesh=mesh,
-            )
-            diag = make_diag_fn(self.model, box, torch.float64, self.device,
-                                None if mesh is None
-                                else mesh.rows(box.volume))
-            R = self.model.n_reactions
-
-            def op_info(mask):
-                nd = torch.stack([
-                    torch.sum(mask).to(torch.float64),
-                    torch.max(diag(mask)),
-                ])
-                if mesh is not None:
-                    nd = torch.stack([mesh.sum(nd[0]), mesh.max(nd[1])])
-                n, dmax = nd.tolist()
-                # operator-norm proxy for the scaled breakdown threshold
-                return int(n), R, 2.0 * dmax
-
-            step = make_step_fn(
-                lambda mask: (lambda x: matvec(mask, x)),
-                self._geometry_config(box), op_info,
-                reduce=None if mesh is None else mesh.sum,
-                basis=self._basis, graph_matvec=matvec,
-            )
-            self._fns[key] = _GeometryFns(
-                step=step, matvec=matvec, diag=diag,
-                dilate=make_dilate_fn(box, self.device, mesh),
-            )
+            with span("geometry"):
+                self._fns[key] = self._build_functions(box)
         return self._fns[key]
+
+    def _build_functions(self, box: BoxSpace) -> _GeometryFns:
+        mesh = self.mesh
+        matvec = select_stencil_matvec(
+            self.model, box, self.config, self._dtype, self.device,
+            mesh=mesh,
+        )
+        diag = make_diag_fn(self.model, box, torch.float64, self.device,
+                            None if mesh is None
+                            else mesh.rows(box.volume))
+        R = self.model.n_reactions
+
+        def op_info(mask):
+            nd = torch.stack([
+                torch.sum(mask).to(torch.float64),
+                torch.max(diag(mask)),
+            ])
+            if mesh is not None:
+                nd = torch.stack([mesh.sum(nd[0]), mesh.max(nd[1])])
+            n, dmax = nd.tolist()
+            # operator-norm proxy for the scaled breakdown threshold
+            return int(n), R, 2.0 * dmax
+
+        step = make_step_fn(
+            lambda mask: (lambda x: matvec(mask, x)),
+            self._geometry_config(box), op_info,
+            reduce=None if mesh is None else mesh.sum,
+            basis=self._basis, graph_matvec=matvec,
+        )
+        return _GeometryFns(
+            step=step, matvec=matvec, diag=diag,
+            dilate=make_dilate_fn(box, self.device, mesh),
+        )
 
     @property
     def cached_geometries(self) -> list[tuple[int, ...]]:
@@ -332,6 +337,7 @@ class BoxCmeSolver:
             if not changed:
                 return box, mask, w
 
+    @spanned("geometry")
     def _reshape_box(self, box, mask, w, grow: bool):
         """The host side of a GROW (``grow``) or BUDGET event: grow the
         axes whose faces active cells touch, then shrink loose axes.
@@ -523,7 +529,6 @@ class BoxCmeSolver:
                 advanced=res.advanced,
                 expanded=res.iexpand,
                 dropped=dropped,
-                wall_s=time.perf_counter() - wall0,
             )
             stats.records.append(rec)
             if verbosity:
@@ -564,12 +569,13 @@ class BoxCmeSolver:
         key = ("adv", box.log2, box.axis_of_species, growable, budget)
         if key not in self._fns:
             fns = self._functions(box)
-            self._fns[key] = make_advance_fn(
-                self.model, box, self._geometry_config(box), growable,
-                budget, self._dtype, self.device, mesh=self.mesh,
-                matvec=fns.matvec, diag=fns.diag, dilate=fns.dilate,
-                basis=self._basis,
-            )
+            with span("geometry"):
+                self._fns[key] = make_advance_fn(
+                    self.model, box, self._geometry_config(box), growable,
+                    budget, self._dtype, self.device, mesh=self.mesh,
+                    matvec=fns.matvec, diag=fns.diag, dilate=fns.dilate,
+                    basis=self._basis,
+                )
         return self._fns[key]
 
     def _growable(self, box: BoxSpace) -> tuple[int, ...]:
@@ -598,19 +604,15 @@ class BoxCmeSolver:
         stalled_grows = 0
         while True:
             adv = self._advance(box, self._growable(box))
-            seg0 = time.perf_counter()
-            st = adv(w, mask, carry, t_out, fsptol, krytol)
+            with span("segment"):
+                st = adv(w, mask, carry, t_out, fsptol, krytol)
             w, mask, carry = st.w, st.mask, st.carry
             stats.n_drops += st.n_drops
             stats.n_expansions += st.n_expansions
             nsteps = st.steps
             total_steps += nsteps
-            # per-step wall inside a segment is not observed: each record
-            # carries the segment's wall over its attempted steps
-            seg_wall = (time.perf_counter() - seg0) / max(nsteps, 1)
             for row in st.records:
-                rec = StepRecord(**dict(zip(RECORD_FIELDS, row)),
-                                 wall_s=seg_wall)
+                rec = StepRecord(**dict(zip(RECORD_FIELDS, row)))
                 stats.records.append(rec)
                 if verbosity:
                     print(rec.format(), flush=True)
@@ -744,9 +746,10 @@ def solve_cme_box(
     (:class:`BoxCmeSolver`).  ``device`` defaults to ``"cuda"``; with
     ``mesh`` the solve is row-sharded and every rank of the mesh calls
     this with the same arguments."""
-    solver = BoxCmeSolver(model, config, device=device, mesh=mesh)
-    return solver.solve(
-        t, initial_states, p0, fsp_tol, krylov_tol, verbosity=verbosity,
-        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
-        resume_from=resume_from,
-    )
+    with span("solve"):
+        solver = BoxCmeSolver(model, config, device=device, mesh=mesh)
+        return solver.solve(
+            t, initial_states, p0, fsp_tol, krylov_tol, verbosity=verbosity,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, resume_from=resume_from,
+        )

@@ -26,6 +26,7 @@ kernels against the stored-CSR memory roofline (bench.py).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -100,14 +101,22 @@ def _solve_kwargs(args) -> dict:
     return kwargs
 
 
+@contextlib.contextmanager
 def _profiled(profile_dir):
-    import contextlib
-
+    """torch.profiler writing its trace to ``profile_dir``, with the
+    solver's spans recorded (utils/trace.py), so the trace names the
+    layers (``kfs::step``, ``kfs::replay``, ...); nothing without a
+    directory."""
     if not profile_dir:
-        return contextlib.nullcontext()
+        yield
+        return
     import torch.profiler as tp
 
-    return tp.profile(on_trace_ready=tp.tensorboard_trace_handler(profile_dir))
+    from .utils import trace
+
+    with trace.recording(), tp.profile(
+            on_trace_ready=tp.tensorboard_trace_handler(profile_dir)):
+        yield
 
 
 def _solve_rank(mesh, args):
@@ -339,7 +348,8 @@ def main(argv=None) -> int:
                     help="steps between snapshots (default 50)")
     ps.add_argument("--resume", help="resume a solve from a snapshot .npz")
     ps.add_argument("--profile",
-                    help="write a torch.profiler trace to this directory")
+                    help="write a torch.profiler trace to this directory, "
+                    "the solver's layers named in it as kfs:: ranges")
     ps.add_argument("--log-steps",
                     help="write per-step records as JSON lines to this file")
     ps.set_defaults(fn=cmd_solve)

@@ -64,6 +64,7 @@ from ..ops.stencil import (
     to_device,
 )
 from ..statespace.drop import _N_LEVELS
+from ..utils.trace import span, spanned
 from .stepper import StepCarry, make_step_fn
 
 EVENT_NONE = 0
@@ -185,6 +186,7 @@ def make_advance_fn(
     #: cells ``n``, largest diagonal ``dmax`` and face ``touch``
     seen: dict = {}
 
+    @spanned("observe")
     def observe(mask, extra=None):
         """THE read: active cells, largest diagonal and touch flag of
         ``mask`` (reduced over ranks), stacked with the float64 scalars
@@ -212,6 +214,7 @@ def make_advance_fn(
         graph_matvec=matvec,
     )
 
+    @spanned("drop")
     def drop_inline(mask, w, dsum, rate_budget):
         """DROP_STATES as mask arithmetic on the device (StateSpace.f90:
         398-548), with the anti-thrash gate: the gross inflow into the drop
@@ -246,6 +249,7 @@ def make_advance_fn(
                            dropped_mass])
         return mask & ~gone, torch.where(gone, 0.0, w), out
 
+    @spanned("expand_inline")
     def expand_inline(mask, w, t_ssa):
         """SSA_EXTENDER analog (StateSpace.f90:550-630): dilate by the
         event count the reference's walks would cover in t_ssa, inside the
@@ -393,13 +397,14 @@ def make_masked_table_step(config: SolverConfig, basis: dict | None = None,
     def op_info(oa):
         op, active = oa
         if seen.get("op") is not op or seen.get("active") is not active:
-            nd = torch.stack([
-                torch.sum(active).to(_F64),
-                torch.max(torch.where(active, op.diag, 0.0)).to(_F64),
-            ])
-            if mesh is not None:
-                nd = torch.stack([mesh.sum(nd[0]), mesh.max(nd[1])])
-            n, dmax = nd.tolist()
+            with span("observe"):
+                nd = torch.stack([
+                    torch.sum(active).to(_F64),
+                    torch.max(torch.where(active, op.diag, 0.0)).to(_F64),
+                ])
+                if mesh is not None:
+                    nd = torch.stack([mesh.sum(nd[0]), mesh.max(nd[1])])
+                n, dmax = nd.tolist()
             seen.update(op=op, active=active, n=int(n), dmax=dmax)
         return seen["n"], operator_nreactions(op), 2.0 * seen["dmax"]
 
@@ -452,6 +457,7 @@ def make_table_advance_fn(
     drop_fraction = config.drop_fraction
     levels = [config.droptol_start / 10.0 ** i for i in range(_N_LEVELS)]
 
+    @spanned("drop")
     def drop_inline(op, active, w, dsum, rate_budget, carry):
         """DROP_STATES as row-mask arithmetic on the device: the largest
         droptol level whose below-threshold mass fits in dsum, rows below

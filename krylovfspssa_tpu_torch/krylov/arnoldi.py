@@ -33,6 +33,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..utils.trace import spanned
+
 
 def dot64(a: torch.Tensor, b: torch.Tensor, reduce=None) -> torch.Tensor:
     """<a, b> with float64 accumulation, at ~float32 cost (a 0-d float64
@@ -120,6 +122,7 @@ def arnoldi_avnorm(matvec, V, status, m: int, reduce=None) -> None:
     status[AVNORM] = torch.where(status[BRK] == 0, av, 0.0)
 
 
+@spanned("arnoldi")
 def arnoldi_extend(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     V: torch.Tensor,

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.trace import span, spanned
 from .arnoldi import arnoldi_avnorm, arnoldi_column, new_status
 
 #: the counters of ops/stencil_cuda.py a graph's kernels add to
@@ -108,9 +109,11 @@ class ColumnGraphs:
         if entry is None:
             entry = self._graphs[key] = self._capture(body)
         graph, delta = entry
-        graph.replay()
+        with span("replay"):
+            graph.replay()
         _add_counts(delta)
 
+    @spanned("capture")
     def _capture(self, body):
         cur = torch.cuda.current_stream(self.mask.device)
         self._stream.wait_stream(cur)

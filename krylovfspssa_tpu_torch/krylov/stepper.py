@@ -57,6 +57,7 @@ import torch
 
 from ..config import SolverConfig
 from ..ops.expm import expm_chebyshev_col0, expm_pade
+from ..utils.trace import span, spanned
 from .arnoldi import arnoldi_extend
 
 _SQR1 = math.sqrt(0.1)
@@ -79,7 +80,8 @@ def read(t: torch.Tensor) -> list:
     stepper goes through here, and adds one to ``READS``."""
     global READS
     READS += 1
-    return t.tolist()
+    with span("read"):
+        return t.tolist()
 
 
 def _pick(cond: torch.Tensor, a: float, b: float) -> torch.Tensor:
@@ -306,6 +308,7 @@ def make_step_fn(
                 graph_matvec, op)
         return graphs
 
+    @spanned("step")
     def step(op, w, sc: StepCarry, t_out, fsptol, krytol) -> StepResult:
         args = (_F64(t_out), _F64(fsptol), _F64(krytol))
         with np.errstate(all="ignore"):
@@ -452,7 +455,8 @@ def make_step_fn(
             def expm_read(mx_arg, t_arg, head=()):
                 """The expm and THE read of an attempt: the Arnoldi
                 outcome ``head`` (if any), E[m,0], E[m+1,0], hnorm, ns."""
-                E, hnorm, ns = expm_fn(Hbar, mx_arg, t_arg, ideg)
+                with span("expm"):
+                    E, hnorm, ns = expm_fn(Hbar, mx_arg, t_arg, ideg)
                 vals = read(torch.stack(
                     [*head, E[m, 0], E[m + 1, 0], hnorm, ns]))
                 return E, vals
@@ -595,6 +599,7 @@ def make_step_fn(
                 return wc
             return torch.clamp_min(wc, 0.0)
 
+        @spanned("fsp_check")
         def fsp_check(E, t_step, ns=None, start=False):
             """ONE read: (assembled w or None, wsum, ok, short, the other
             values read).  ``short``: the mass fell below the criterion (a
@@ -657,7 +662,8 @@ def make_step_fn(
                 np.maximum(fc_t / 5.0, np.minimum(0.9 * fc_t, tfsp)),
             )
             ts = round_2sig(ts, 0.55)
-            fc_E, _, ns = expm_fn(Hbar, mx, sgn * ts, ideg)
+            with span("expm"):
+                fc_E, _, ns = expm_fn(Hbar, mx, sgn * ts, ideg)
             error_old, tau_old, fc_t = error, fc_t, ts
             # the last allowed shrink also reads the start vector's sum of
             # squares, for an abandoned step's beta

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..statespace.encoding import StateEncoder
+from ..utils.trace import spanned
 
 
 class CmeOperator(NamedTuple):
@@ -105,6 +106,7 @@ def _lookup_keys_wide(sorted_keys, sorted_to_row, queries):
     return out.reshape(queries.shape[:-1])
 
 
+@spanned("build_operator")
 def build_operator(
     states: torch.Tensor,
     sorted_keys: torch.Tensor,

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .operator import CmeOperator
+from ..utils.trace import spanned
 from .pencil import PencilOperator, pencil_matvec
 
 #: number of :func:`spmv` calls (a plain counter a run resets and reads to
@@ -30,6 +31,7 @@ from .pencil import PencilOperator, pencil_matvec
 CALLS = 0
 
 
+@spanned("spmv")
 def spmv(op, x: torch.Tensor, x_rows: torch.Tensor | None = None
          ) -> torch.Tensor:
     """y = A_J @ x with A_J the projected CME generator: gather-ELL

@@ -58,6 +58,7 @@ from .statespace.encoding import StateEncoder
 from .statespace.expand import onestep_extend, ssa_extend
 from .statespace.table import StateTable
 from .utils.stats import SolverStats, StepRecord
+from .utils.trace import span
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32}
 _F64 = torch.float64
@@ -742,7 +743,6 @@ class CmeSolver:
                 advanced=res.advanced,
                 expanded=res.iexpand,
                 dropped=dropped,
-                wall_s=time.perf_counter() - wall0,
             )
             stats.records.append(rec)
             if verbosity:
@@ -843,18 +843,14 @@ class CmeSolver:
             if float(carry.t_now) >= abs(float(t)):
                 break
             adv = self._advance(vl.cells, budget)
-            seg0 = time.perf_counter()
-            st = adv(op, w, active, carry, t, fsptol, krytol)
+            with span("segment"):
+                st = adv(op, w, active, carry, t, fsptol, krytol)
             w, active, carry = st.w, st.active, st.carry
             nsteps = st.steps
             total_attempted += nsteps
             stats.n_drops += st.n_drops
-            # per-step wall inside a segment is not observed: each record
-            # carries the segment's wall over its attempted steps
-            seg_wall = (time.perf_counter() - seg0) / max(nsteps, 1)
             for row in st.records:
-                rec = StepRecord(**dict(zip(RECORD_FIELDS, row)),
-                                 wall_s=seg_wall)
+                rec = StepRecord(**dict(zip(RECORD_FIELDS, row)))
                 stats.records.append(rec)
                 if verbosity:
                     print(rec.format(), flush=True)
@@ -959,9 +955,10 @@ def solve_cme(
     ``"cuda"``; with ``mesh`` the solve is row-sharded and every rank of
     the mesh calls this with the same arguments (every rank returns the
     whole result)."""
-    solver = CmeSolver(model, config, mesh=mesh, device=device)
-    return solver.solve(
-        t, initial_states, p0, fsp_tol, krylov_tol, verbosity=verbosity,
-        checkpoint_path=checkpoint_path, checkpoint_every=checkpoint_every,
-        resume_from=resume_from,
-    )
+    with span("solve"):
+        solver = CmeSolver(model, config, mesh=mesh, device=device)
+        return solver.solve(
+            t, initial_states, p0, fsp_tol, krylov_tol, verbosity=verbosity,
+            checkpoint_path=checkpoint_path,
+            checkpoint_every=checkpoint_every, resume_from=resume_from,
+        )

@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.trace import spanned
 from .table import StateTable
 
 #: jumps between two reads of "is any walk still alive"
@@ -51,6 +52,7 @@ def onestep_candidates(table: StateTable, stoichiometry: np.ndarray):
     return keys, succ
 
 
+@spanned("onestep")
 def onestep_extend(
     table: StateTable, stoichiometry: np.ndarray, max_capacity: int | None
 ) -> tuple[StateTable, int]:
@@ -121,6 +123,7 @@ def _ssa_walk(states, t_budget, generator, props_fn, stoich, encoder,
     return torch.stack(emitted)
 
 
+@spanned("ssa")
 def ssa_extend(
     table: StateTable,
     props_fn,

@@ -24,6 +24,7 @@ import dataclasses
 
 import numpy as np
 
+from ..utils.trace import spanned
 from .encoding import StateEncoder
 
 #: padding value for the sorted-key view; larger than any valid key
@@ -212,6 +213,7 @@ class StateTable:
         )
         return table, int(cand_keys.shape[0])
 
+    @spanned("compact")
     def compact(self, keep_mask) -> tuple["StateTable", np.ndarray]:
         """Drop rows where keep_mask is False (order-preserving).
 

@@ -28,14 +28,6 @@ class StepRecord:
     advanced: bool
     expanded: bool
     dropped: int
-    #: host wall seconds attributed to this step.  Semantics differ by
-    #: loop: the stepwise loop records the cumulative wall since the solve
-    #: started, at the time the step returned; the fused loop cannot
-    #: observe a step's wall inside a segment and records the SEGMENT's
-    #: wall divided by its attempted steps (the first segment of a
-    #: geometry also carries its operand build and, on CUDA, the kernel
-    #: build of the first solve).  Do not compare the two as like for like.
-    wall_s: float = 0.0
 
     def format(self) -> str:
         # parity with PRINT_STATS (KrylovSolver.f90:641-651)

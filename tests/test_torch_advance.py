@@ -36,6 +36,7 @@ from krylovfspssa_tpu_torch.boxspace.box import BoxSpace
 from krylovfspssa_tpu_torch.cli import main as cli_main
 from krylovfspssa_tpu_torch.krylov import advance as tadv
 from krylovfspssa_tpu_torch.models import library as tlib
+from krylovfspssa_tpu_torch.utils import trace
 
 torch.set_num_threads(2)
 
@@ -79,15 +80,16 @@ def bursting():
                              BURSTING["x0"],
                              config=SolverConfig(fused_steps=False),
                              device="cpu", **kw)
-    fused = solve_cme_box(tlib.bursting_gene_model(), BURSTING["t"],
-                          BURSTING["x0"], device="cpu", **kw)
+    with trace.recording() as rec:
+        fused = solve_cme_box(tlib.bursting_gene_model(), BURSTING["t"],
+                              BURSTING["x0"], device="cpu", **kw)
     jax_fused = JSolver(jlib.bursting_gene_model(), JConfig()).solve(
         BURSTING["t"], BURSTING["x0"], **kw)
-    return stepwise, fused, jax_fused
+    return stepwise, fused, jax_fused, rec.spans
 
 
 def test_fused_loop_matches_stepwise_loop(bursting):
-    stepwise, fused, _ = bursting
+    stepwise, fused, _, _ = bursting
     assert fused.stats.nstep == stepwise.stats.nstep
     assert fused.stats.final_fsp_size == stepwise.stats.final_fsp_size
     d_u = {tuple(s): p for s, p in zip(stepwise.states,
@@ -102,7 +104,7 @@ def test_fused_loop_matches_jax_fused_records(bursting):
     error estimate, is a difference of nearly equal terms at round-off
     level; it is held to a tenth of krylov_tol (a step is rejected only
     above 1.2 * krylov_tol * t_step), the other floats to 1e-12."""
-    _, fused, jax_fused = bursting
+    _, fused, jax_fused, spans = bursting
     assert fused.stats.nstep == jax_fused.stats.nstep
     assert fused.box.shape == jax_fused.box.shape
     assert fused.stats.n_drops == jax_fused.stats.n_drops
@@ -116,7 +118,8 @@ def test_fused_loop_matches_jax_fused_records(bursting):
             assert getattr(a, k) == pytest.approx(getattr(b, k), rel=1e-12,
                                                   abs=1e-300), (a, b, k)
         assert abs(a.err_loc - b.err_loc) <= 0.1 * BURSTING["krylov_tol"]
-        assert a.wall_s > 0.0
+    # the fused loop's segments are spanned (the records carry no wall)
+    assert spans["segment"][0] > 0
     assert _l1(fused, jax_fused) <= BURSTING["fsp_tol"]
 
 
