@@ -7,7 +7,7 @@ NVIDIA GPU.
                                             # paths alone
     python3 chip_smoke.py --table-flagship  # Goutsias t=300 alone
 
-Builds the hand-written stencil and Padé kernels from
+Builds the hand-written stencil, Padé and Arnoldi-column kernels from
 ``krylovfspssa_tpu_torch/csrc`` with nvcc (and the table backend's native hash with g++), drives the port's
 three box solve paths through ``solve_cme_box``/``BoxCmeSolver`` and its
 table path through ``CmeSolver`` on ``cuda`` -- in the default fused main
@@ -106,6 +106,14 @@ paths:
      global vector): kernel vs plain version per shard (float64 bit for
      bit), the concatenated shards vs the whole-box kernel (bit for bit),
      each shard's time, bound and CSR time;
+  8c. ``[arnoldi]``: the Arnoldi column kernel (csrc/arnoldi_column.cu,
+     everything of a column after its matvec) vs its plain version on the
+     final states of the toggle and Goutsias solves of phase 2, float64
+     and float32, qiop = 2: V[j] and H's column within 1e-13 / 1e-5 of
+     their largest entry and the status exactly; its time eager and in a
+     CUDA graph beside the plain version's and its bound; every solve
+     path's columns and avnorms go through it (launches >= nmult in every
+     solve and every rank);
   9. ``[ell]``: the table path's gather-ELL SpMV on the last operator and
      final w of the Goutsias t=30 solve of 4b: its time, its bound (the
      bytes it needs over 3.35 TB/s), one CSR SpMV of the same operator
@@ -533,21 +541,35 @@ STENCILS = ("box_stencil", "direct_stencil", "halo_stencil")
 
 
 def _launches() -> dict:
+    from krylovfspssa_tpu_torch.krylov import arnoldi
     from krylovfspssa_tpu_torch.ops import expm, stencil_cuda
 
     return {"box_stencil": stencil_cuda.LAUNCHES,
             "direct_stencil": stencil_cuda.DIRECT_LAUNCHES,
             "halo_stencil": stencil_cuda.HALO_LAUNCHES,
-            "expm_pade": expm.LAUNCHES}
+            "expm_pade": expm.LAUNCHES,
+            "arnoldi_column": arnoldi.LAUNCHES}
 
 
 def _reset_launches():
+    from krylovfspssa_tpu_torch.krylov import arnoldi
     from krylovfspssa_tpu_torch.ops import expm, stencil_cuda
 
     stencil_cuda.LAUNCHES = 0
     stencil_cuda.DIRECT_LAUNCHES = 0
     stencil_cuda.HALO_LAUNCHES = 0
     expm.LAUNCHES = 0
+    arnoldi.LAUNCHES = 0
+
+
+def _check_columns(tag, launches, nmult):
+    """Every Arnoldi column and avnorm of a solve on the card went through
+    csrc/arnoldi_column.cu: its launches (one per column and avnorm
+    enqueued) are at least the solve's nmult (the columns up to each
+    breakdown, plus the avnorms)."""
+    if launches["arnoldi_column"] < nmult:
+        raise AssertionError(f"{tag}: {launches['arnoldi_column']} "
+                             f"arnoldi_column launches < nmult {nmult}")
 
 
 def _reset_retakes():
@@ -621,8 +643,9 @@ def _solve(model, t, x0, fsp_tol, krylov_tol, config=None):
 def _check_solve(tag, solver, res, launches, wsum_lo, wsum_hi,
                  kernel="box_stencil"):
     """The correctness gate of one solve; every matvec went through
-    ``kernel`` and none through another stencil kernel, and every
-    exponential through ``expm_pade``."""
+    ``kernel`` and none through another stencil kernel, every exponential
+    through ``expm_pade``, and every Arnoldi column through
+    ``arnoldi_column``."""
     import torch
 
     s = res.stats
@@ -644,6 +667,7 @@ def _check_solve(tag, solver, res, launches, wsum_lo, wsum_hi,
     if launches["expm_pade"] < s.nexph:
         raise AssertionError(f"{tag}: {launches['expm_pade']} expm_pade "
                              f"launches < nexph {s.nexph}")
+    _check_columns(tag, launches, s.nmult)
 
 
 def _print_solve(tag, solver, res, launches, wall):
@@ -1191,6 +1215,101 @@ def phase_step(toggle_one, goutsias_one):
     _columns("goutsias", goutsias_model(), goutsias_one)
     print(f"[step] wall {time.perf_counter() - t0:.2f} s")
     out = dict(rows["mx~32"])
+    out["cases"] = rows
+    return out
+
+
+def phase_arnoldi(launches, finals):
+    """[arnoldi]: the Arnoldi column kernel (csrc/arnoldi_column.cu, through
+    ``arnoldi.column_update``) vs its plain version
+    (``column_update_plain``) on the card, at the solves' qiop = 2, on
+    column 3 of a basis grown by the solve's own matvec from the final w of
+    each solve in ``finals`` ({name: (model, result)}), in float64 and
+    float32: V[j] and the column of H within 1e-13 (float64) or 1e-5
+    (float32) of their largest entry (the kernel and the plain version sum
+    each dot in a different order; the plain float32 dot sums blocks of
+    128 products in float32), the status exactly.  Each row gives the
+    kernel's time launched eagerly and replayed from a CUDA graph (as the
+    box backend runs it), the plain version's, and the bound: the bytes
+    the column needs (w, v_{j-1} and v_j read, V[j] written: 32 vol bytes
+    in float64) over 3.35 TB/s.  Returns the first solve's float64 row,
+    with every case under "cases"."""
+    import torch
+
+    from krylovfspssa_tpu_torch import SolverConfig
+    from krylovfspssa_tpu_torch.krylov import arnoldi
+    from krylovfspssa_tpu_torch.ops.stencil import select_stencil_matvec
+
+    t0 = time.perf_counter()
+    j, qiop = 3, 2
+    tol = torch.tensor(1e-7, dtype=torch.float64, device="cuda")
+    rows = {}
+    for name, (model, res) in finals.items():
+        mask, x = _final_inputs(res)
+        mv = select_stencil_matvec(model, res.box, SolverConfig(),
+                                   torch.float64, "cuda")
+        vol = x.numel()
+        V = torch.zeros((j + 2, vol), dtype=torch.float64, device="cuda")
+        H = torch.zeros((j + 2, j + 2), dtype=torch.float64, device="cuda")
+        V[0] = x / torch.linalg.vector_norm(x)
+        st = arnoldi.arnoldi_extend(lambda v: mv(mask, v), V, H, 1, j - 1,
+                                    qiop, tol)
+        if bool(st.breakdown):
+            raise AssertionError(f"[arnoldi] {name}: the basis broke down")
+        w64 = mv(mask, V[j - 1])
+        for dt, rtol in ((torch.float64, 1e-13),
+                         (torch.float32, F32_RTOL)):
+            w = w64.to(dt)
+            start = (V.to(dt), H.clone(), arnoldi.new_status("cuda"))
+            kern = tuple(t.clone() for t in start)
+            plain = tuple(t.clone() for t in start)
+            before = arnoldi.LAUNCHES
+            arnoldi.column_update(w, *kern, j, qiop, tol)
+            arnoldi.column_update_plain(w, *plain, j, qiop, tol)
+            torch.cuda.synchronize()
+            if arnoldi.LAUNCHES != before + 1:
+                raise AssertionError(f"[arnoldi] {name}: "
+                                     f"{arnoldi.LAUNCHES - before} launches")
+            errs = {}
+            for what, a, b in (
+                    ("V[j]", kern[0][j], plain[0][j]),
+                    ("H", kern[1][j - qiop:j + 1, j - 1],
+                     plain[1][j - qiop:j + 1, j - 1])):
+                a, b = a.double(), b.double()
+                errs[what] = float(torch.max(torch.abs(a - b))
+                                   / torch.max(torch.abs(b)))
+            same = (torch.equal(kern[2], plain[2])
+                    and torch.equal(kern[0][:j], plain[0][:j]))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                arnoldi.column_update(w, *kern, j, qiop, tol)
+            ms = _time_ms(arnoldi.column_update, w, *kern, j, qiop, tol)
+            row = dict(
+                max_rel_err=max(errs.values()), ms=ms,
+                graph_ms=_time_ms(graph.replay),
+                plain_ms=_time_ms(arnoldi.column_update_plain, w, *plain, j,
+                                  qiop, tol),
+                bound_ms=_bound((qiop + 2) * vol * w.element_size(), 0,
+                                dt)[0],
+                launches=launches, vol=vol)
+            del graph
+            tag = f"{name}-solve-final {str(dt)[6:]}"
+            print(f"[arnoldi] {tag} vol={vol} j={j} qiop={qiop}: max rel "
+                  f"err V[j] {errs['V[j]']:.3e}, H {errs['H']:.3e} (limit "
+                  f"{rtol:g}); status equal {same}; kernel "
+                  f"{row['ms'] * 1e3:.2f} us eager, "
+                  f"{row['graph_ms'] * 1e3:.2f} us in a graph; plain "
+                  f"{row['plain_ms'] * 1e3:.1f} us; bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us (bytes; "
+                  f"{100 * row['bound_ms'] / row['graph_ms']:.0f}% of it in "
+                  f"a graph); launches on the solve paths {launches}")
+            if not (same and row["max_rel_err"] <= rtol):
+                raise AssertionError(f"[arnoldi] {tag}: kernel disagrees "
+                                     f"with the plain version: {errs}, "
+                                     f"status and rows equal {same}")
+            rows[tag] = row
+    print(f"[arnoldi] wall {time.perf_counter() - t0:.2f} s")
+    out = dict(next(iter(rows.values())))
     out["cases"] = rows
     return out
 
@@ -1769,6 +1888,7 @@ def phase_sharded(one_rank):
         if o["launches"]["halo_stencil"] < nmult:
             raise AssertionError(f"rank {o['rank']}: {o['launches']} "
                                  f"halo_stencil launches < nmult {nmult}")
+        _check_columns(f"[sharded] rank {o['rank']}", o["launches"], nmult)
         if o["launches"]["box_stencil"] or o["launches"]["direct_stencil"]:
             raise AssertionError(f"rank {o['rank']} launched another "
                                  f"kernel: {o['launches']}")
@@ -1809,6 +1929,8 @@ def _check_no_halo(outs, one_rank):
         if iflag != 0 or nh["launches"]["halo_stencil"] < nmult:
             raise AssertionError(f"use_halo=False rank {o['rank']}: iflag "
                                  f"{iflag}, {nh['launches']} < nmult {nmult}")
+        _check_columns(f"[sharded-gather] rank {o['rank']}", nh["launches"],
+                       nmult)
         if nh["launches"]["box_stencil"] or nh["launches"]["direct_stencil"]:
             raise AssertionError(f"use_halo=False launched another kernel: "
                                  f"{nh['launches']}")
@@ -1901,6 +2023,8 @@ def phase_sharded_direct(one_rank):
         if o["launches"]["direct_stencil"] < nmult:
             raise AssertionError(f"rank {o['rank']}: {o['launches']} "
                                  f"direct_stencil launches < nmult {nmult}")
+        _check_columns(f"[sharded-direct] rank {o['rank']}", o["launches"],
+                       nmult)
         if o["launches"]["box_stencil"] or o["launches"]["halo_stencil"]:
             raise AssertionError(f"rank {o['rank']} launched another "
                                  f"kernel: {o['launches']}")
@@ -2030,6 +2154,8 @@ def phase_sharded_table(one_rank):
             raise AssertionError(f"rank {o['rank']}: {o['calls']} ELL calls "
                                  f"(nmult {nmult}), launches "
                                  f"{o['launches']}")
+        _check_columns(f"[sharded-table] rank {o['rank']}", o["launches"],
+                       nmult)
     res = outs[0]["result"]
     l1 = _l1(res, one_rank)
     print(f"[sharded-table] goutsias t={TABLE_GOUTSIAS_T:g}: wsum "
@@ -2204,13 +2330,16 @@ def _table_solve(tag, model, scenario, box_result=None):
     import torch
 
     torch.cuda.reset_peak_memory_stats()
+    before = _launches()
     with _table_timers() as times:
         solver, res, calls, wall = _solve_table(model, *scenario)
+    launches = {k: v - before[k] for k, v in _launches().items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _print_table(tag, solver, res, calls, wall, peak)
     _print_timers(tag, times)
     fsp_tol = scenario[2]
     _check_table(tag, solver, res, calls, fsp_tol)
+    _check_columns(f"[table] {tag}", launches, res.stats.nmult)
     if box_result is not None:
         l1 = _l1(res, box_result)
         print(f"[table] {tag}: L1 to the box solve {l1:.3e} (limit "
@@ -2572,7 +2701,8 @@ def main(argv=None) -> int:
         return phase_toggle(), phase_goutsias()
 
     sep, (toggle_one, goutsias_one) = _path_launches(
-        "separable path", separable, ["box_stencil", "expm_pade"])
+        "separable path", separable,
+        ["box_stencil", "expm_pade", "arnoldi_column"])
     if sep["direct_stencil"] or sep["halo_stencil"]:
         raise AssertionError(f"separable models launched another kernel: "
                              f"{sep}")
@@ -2584,7 +2714,8 @@ def main(argv=None) -> int:
 
     cus, (customprop, (ge5d, ge5d_box, ge5d_input, ge5d_one)) = (
         _path_launches("custom path", custom,
-                       ["direct_stencil", "box_stencil", "expm_pade"]))
+                       ["direct_stencil", "box_stencil", "expm_pade",
+                        "arnoldi_column"]))
     # path 3, the row-sharded solve: halo_stencil in every rank (and the
     # same solve with use_halo=False, counted in its own window)
     shl, gathered = phase_sharded(goutsias_one)
@@ -2596,7 +2727,7 @@ def main(argv=None) -> int:
     calls = _spmv_calls()
     tab, (ell_op, ell_x, ell_n, table_one) = _path_launches(
         "table path", lambda: phase_table(toggle_one, goutsias_one),
-        ["expm_pade"])
+        ["expm_pade", "arnoldi_column"])
     table_calls = _spmv_calls() - calls
     if _any_stencil(tab):
         raise AssertionError(f"table path launched a stencil kernel: {tab}")
@@ -2604,7 +2735,8 @@ def main(argv=None) -> int:
     # stencil kernel), and 4c, the pencil operator (torch ops, no kernel)
     phase_sharded_table(table_one)
     pen_tab, pencil_row = _path_launches(
-        "pencil path", lambda: phase_pencil(table_one), ["expm_pade"])
+        "pencil path", lambda: phase_pencil(table_one),
+        ["expm_pade", "arnoldi_column"])
     if _any_stencil(pen_tab):
         raise AssertionError(f"pencil path launched a stencil kernel: "
                              f"{pen_tab}")
@@ -2632,6 +2764,12 @@ def main(argv=None) -> int:
         "shard_ms", "shard_bound_ms", "shard_library_ms")}
         for p, row in direct_shards.items()}
     halo = phase_halo(goutsias_one.box, launches["halo_stencil"])
+    # every solve path's columns, the table paths' too
+    columns = phase_arnoldi(
+        launches["arnoldi_column"] + tab["arnoldi_column"]
+        + pen_tab["arnoldi_column"], {
+            "toggle": (toggle_file_model(), toggle_one),
+            "goutsias": (goutsias_model(), goutsias_one)})
     phase_ell(ell_op, ell_x, ell_n, table_calls)
     del ell_op, ell_x
     bench = phase_bench()
@@ -2669,7 +2807,13 @@ def main(argv=None) -> int:
         "source": "krylovfspssa_tpu_torch/csrc/expm_pade.cu",
         # the JAX package's XLA expm: not a Pallas kernel
         "replaces": "krylovfspssa_tpu/ops/expm.py:79",
-    }, **step)]}))
+    }, **step), dict({
+        "name": "arnoldi_column",
+        "route": "cuda",
+        "source": "krylovfspssa_tpu_torch/csrc/arnoldi_column.cu",
+        # the JAX package's column is XLA ops: not a Pallas kernel
+        "replaces": "krylovfspssa_tpu/krylov/arnoldi.py:77",
+    }, **columns)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

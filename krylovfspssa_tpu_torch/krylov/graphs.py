@@ -1,11 +1,13 @@
 """The Arnoldi column as a CUDA graph, on one card.
 
-A column of krylov/arnoldi.py's extension -- the matvec of V[j-1], the IOP
-dots and axpys, the norm and the masked update of V[j], H and the status
-tensor -- is about 20 small launches that the host would otherwise enqueue
-one by one for each of the m columns of every attempted step.  Here each
-column runs as one replay of a ``torch.cuda.CUDAGraph``, captured at its
-first use, and so does the avnorm matvec that ends the extension.
+A column of krylov/arnoldi.py's extension -- the matvec of V[j-1], then the
+chain of ``csrc/arnoldi_column.cu`` for the IOP dots and axpys, the norm and
+the masked update of V[j], H and the status tensor (q + 2 launches for a
+window of q rows: 4 at the reference's qiop = 2) -- is a few launches that
+the host would otherwise enqueue one by one for each of the m columns of
+every attempted step.  Here each column runs as one replay of a
+``torch.cuda.CUDAGraph``, captured at its first use, and so does the avnorm
+matvec that ends the extension.
 
 :class:`ColumnGraphs` holds one box geometry's graphs on one card (the box
 backend's ``box_stencil`` or ``direct_stencil`` matvec).  The stepper keeps
@@ -20,13 +22,13 @@ they may replay in any order.
 
 Before its first capture a geometry's first column runs once eagerly on
 the capture stream (one stream per card, shared by every geometry), which
-initialises what a capture cannot (library handles and their workspace,
-lazily loaded kernels; every column and the avnorm matvec launch the same
-kernels); a column's second run writes what its first wrote.  A capture
-that fails raises: the port does not fall back to eager columns on the
-card.  Under a mesh and on the table backend the same column code runs
-eagerly (gloo collectives cannot be captured, and a table operator is
-rebuilt at every expansion).
+initialises what a capture cannot (the kernels' library, lazily loaded
+kernels; every column and the avnorm matvec launch the same kernels); a
+column's second run writes what its first wrote.  A capture that fails
+raises: the port does not fall back to eager columns on the card.  Under a
+mesh and on the table backend the same column code runs eagerly (gloo
+collectives cannot be captured, and a table operator is rebuilt at every
+expansion); on one card the table's eager columns launch the same chain.
 
 The kernels' launch counters stay honest: the launches a capture records
 are taken off the counters (nothing ran) and added back at every replay.
@@ -36,28 +38,27 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import stencil_cuda
 from ..utils.trace import span, spanned
+from . import arnoldi
 from .arnoldi import arnoldi_avnorm, arnoldi_column, new_status
 
-#: the counters of ops/stencil_cuda.py a graph's kernels add to
-_COUNTERS = ("LAUNCHES", "DIRECT_LAUNCHES", "HALO_LAUNCHES")
+#: the launch counters a graph's kernels add to: (module, name)
+_COUNTERS = ((stencil_cuda, "LAUNCHES"), (stencil_cuda, "DIRECT_LAUNCHES"),
+             (stencil_cuda, "HALO_LAUNCHES"), (arnoldi, "LAUNCHES"))
 
 #: the capture stream of each card
 _STREAMS: dict = {}
 
 
 def _counts() -> tuple:
-    from ..ops import stencil_cuda
-
-    return tuple(getattr(stencil_cuda, c) for c in _COUNTERS)
+    return tuple(getattr(mod, name) for mod, name in _COUNTERS)
 
 
 def _add_counts(delta) -> None:
-    from ..ops import stencil_cuda
-
-    for name, n in zip(_COUNTERS, delta):
+    for (mod, name), n in zip(_COUNTERS, delta):
         if n:
-            setattr(stencil_cuda, name, getattr(stencil_cuda, name) + n)
+            setattr(mod, name, getattr(mod, name) + n)
 
 
 class ColumnGraphs:

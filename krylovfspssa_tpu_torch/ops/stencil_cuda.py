@@ -30,7 +30,8 @@ header says what bounds the kernel.
 The kernels are compiled on first use with ``nvcc`` into
 ``build/krylovfspssa_tpu_torch/libkfs_kernels.so`` (rebuilt when a source or
 header changes), which also holds ops/expm.py's kernel
-(``csrc/expm_pade.cu``), and bound through ctypes.  Each wrapper takes its plain
+(``csrc/expm_pade.cu``) and krylov/arnoldi.py's (``csrc/arnoldi_column.cu``),
+and bound through ctypes.  Each wrapper takes its plain
 PyTorch version only for tensors on the CPU; for a CUDA tensor it launches
 its kernel or raises.
 """
