@@ -128,6 +128,34 @@ def profiled(fn):
     return out, reduce(events, wall)
 
 
+def busy_seconds(starts_ns, ends_ns) -> float:
+    """Seconds covered by the union of the intervals [starts_ns[i],
+    ends_ns[i]) given in nanoseconds."""
+    run_s, run_e = busy_runs(starts_ns, ends_ns)
+    return float(np.sum(run_e - run_s)) * 1e-9
+
+
+def device_busy(fn):
+    """Run ``fn()`` under torch.profiler tracing the card alone (no host
+    operations, so a window of many solves stays cheap to trace); returns
+    (its result, the seconds in which some device operation ran: kernels,
+    copies and sets, graph replays included)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    starts, ends = [], []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            starts.append(e.start_ns())
+            ends.append(e.start_ns() + e.duration_ns())
+    return out, busy_seconds(starts, ends)
+
+
 def short(name: str, width: int = 120) -> str:
     """A kernel's name without ``void`` and its parameter list, at most
     ``width`` characters."""

@@ -14,7 +14,9 @@ anew, from the configuration's x0, with every published rate constant
 multiplied by its own factor, drawn log-uniformly from [1/jitter,
 jitter] by a generator keyed on (seed, i); on the table the solver's own
 seed comes from the same key.  Solve 0 is the warm-up; solves 1, 2, ...
-fill the window, and none starts after it has closed.
+fill the window, and none starts after it has closed.  In a cell whose
+end-to-end metrics include one read from the device's trace, the window
+runs under a profiler that traces the card alone (``--trace 0`` runs).
 """
 
 from __future__ import annotations
@@ -230,13 +232,24 @@ def window(c: Cell, model, seed: int, seconds: float, device: str,
     return solves, time.perf_counter() - t0
 
 
-def end_to_end(c: Cell, solves, window_s: float, setup_s: float) -> dict:
-    """The cell's end-to-end metrics over the solves that completed."""
+def device_timed(c: Cell) -> bool:
+    """Whether one of the cell's end-to-end metrics is read from the
+    device's trace of the window."""
+    return any(m["source"] == "device_trace" for m in c.end_to_end)
+
+
+def end_to_end(c: Cell, solves, window_s: float, setup_s: float,
+               device_s: float | None = None) -> dict:
+    """The cell's end-to-end metrics over the solves that completed;
+    ``device_s`` is the card's busy seconds over the whole window, where
+    it was traced."""
     done = [sv.wall for sv in solves if sv.counts]
     values = {"setup_s": setup_s}
     if done:
         values["solve_s"] = window_s / len(done)
         values["solve_s_p95"] = p95(done)
+        if device_s is not None:
+            values["device_s_per_solve"] = device_s / len(done)
     return {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
             for m in c.end_to_end if m["name"] in values}
 
@@ -423,7 +436,15 @@ def run(c: Cell, seed: int, seconds: float, traced: bool,
         f"(in a checkout's first run it builds the kernels)")
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    solves, window_s = window(c, model, seed, seconds, device, log=log)
+    device_s = None
+    if on_card and not traced and device_timed(c):
+        from cme_bench import devtrace
+
+        (solves, window_s), device_s = devtrace.device_busy(
+            lambda: window(c, model, seed, seconds, device, log=log))
+        log(f"device busy {device_s!r} s over the window's {window_s!r} s")
+    else:
+        solves, window_s = window(c, model, seed, seconds, device, log=log)
     peak = int(torch.cuda.max_memory_allocated()) if on_card else 0
     result = {"correct": False, "attempted": len(solves),
               "failed": sum(1 for sv in solves if sv.fault)}
@@ -442,7 +463,8 @@ def run(c: Cell, seed: int, seconds: float, traced: bool,
                 {k: v[1] for k, v in tr.profile.device_ops.items()}),
             "idle_gaps": devtrace.top(tr.profile.idle_by_host)}
     else:
-        result["metrics"] = end_to_end(c, solves, window_s, setup_s)
+        result["metrics"] = end_to_end(c, solves, window_s, setup_s,
+                                       device_s)
     result["device"] = device_info
     del model
     if on_card:

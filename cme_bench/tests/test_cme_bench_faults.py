@@ -19,7 +19,8 @@ sys.path.insert(0, str(ROOT))
 
 from cme_bench import harness  # noqa: E402
 
-CELLS = {"toggle-customprop.box-t100": 2.0, "goutsias6.table-t30": 4.0}
+CELLS = {"toggle-customprop.box-t100": 2.0, "goutsias6.table-t30": 4.0,
+         "goutsias6.box-t10": 0.5}
 
 
 def _run(name, seed=2 ** 31 + 17):

@@ -170,6 +170,28 @@ def test_end_to_end_counts_whole_solves_only():
     assert "solve_s_p95" not in harness.end_to_end(toggle, solves, 12.0, 7.5)
 
 
+def test_device_time_per_solve_only_where_the_window_was_traced():
+    c = harness.cell("goutsias6.box-t10")
+    assert harness.device_timed(c)
+    assert not harness.device_timed(harness.cell("goutsias6.table-t30"))
+    assert not harness.device_timed(
+        harness.cell("toggle-customprop.box-t100"))
+    solves = [harness.Solve(i, None, 0.5, {"nstep": 1}) for i in range(1, 5)]
+    solves.append(harness.Solve(5, None, 0.7, {}, fault="raised"))
+    got = harness.end_to_end(c, solves, 2.0, 7.5, device_s=0.2)
+    assert set(got) == {"setup_s", "device_s_per_solve"}
+    assert got["device_s_per_solve"]["value"] == pytest.approx(0.2 / 4)
+    # a run that traced no window (the CPU) reports set-up alone
+    assert set(harness.end_to_end(c, solves, 2.0, 7.5)) == {"setup_s"}
+
+
+def test_busy_seconds_of_nanosecond_intervals():
+    # [0, 4) and [2, 6) overlap, [10, 12) apart: 8 ns
+    assert devtrace.busy_seconds([0, 2, 10], [4, 6, 12]) == pytest.approx(
+        8e-9)
+    assert devtrace.busy_seconds([], []) == 0.0
+
+
 def test_p95_over_all_solves():
     walls = list(np.linspace(1.0, 2.0, 101))
     assert harness.p95(walls) == pytest.approx(1.95)
@@ -218,6 +240,11 @@ def test_kernel_readers():
         tr) == pytest.approx(5.0)
     assert harness.load_module("metrics", "expm_us_per_call").read(
         tr) == pytest.approx(150.0)
+    for base in ("stencil_us_per_matvec", "expm_us_per_call"):
+        box = harness.load_module("metrics", base + ".box")
+        assert box.read(tr) == harness.load_module("metrics", base).read(tr)
+    assert harness.load_module("metrics", "copy_ms_per_solve").read(
+        tr) == pytest.approx(1e-3)
     # the box solve passes through no table span: nothing to read
     assert harness.load_module("metrics", "expand_ms_per_solve").read(
         tr) is None
@@ -228,6 +255,11 @@ def test_kernel_readers():
         table) == pytest.approx(350.0)
     assert harness.load_module("metrics", "operator_build_ms_per_solve").read(
         table) == pytest.approx(30.0)
+    # a solve that copies nothing between host and card
+    no_copy = harness.Trace(
+        devtrace.Profile({"void k()": (1, 1e-6)}, 0, 1e-6, 1e-3, {}), {}, {})
+    assert harness.load_module("metrics", "copy_ms_per_solve").read(
+        no_copy) is None
 
 
 def _imports(path: Path):

@@ -23,6 +23,7 @@ from cme_bench.reference import fsp  # noqa: E402
 
 TOGGLE = "toggle-customprop.box-t100"
 GOUTSIAS = "goutsias6.table-t30"
+GOUTSIAS_BOX = "goutsias6.box-t10"
 
 
 def _birth_death():
@@ -102,15 +103,17 @@ def _judge(c, seed, n, dtype=None):
 # the limits of the cell of their configuration
 @pytest.mark.parametrize("name,t,entry", [
     (TOGGLE, 3.0, "box"), (TOGGLE, 3.0, "table"),
-    (GOUTSIAS, 5.0, "table"), (GOUTSIAS, 2.0, "box")])
+    (GOUTSIAS, 5.0, "table"), (GOUTSIAS, 2.0, "box"),
+    (GOUTSIAS_BOX, 2.0, "box")])
 def test_program_within_the_limits(name, t, entry):
     c = _short(name, t, entry)
     assert _judge(c, 2 ** 31 + 5, 2) <= c.limits["limits"]["excess"]
 
 
-# the control of both cells: the reference computed in float32, over the 8
+# the control of every cell: the reference computed in float32, over the 8
 # draws a run compares, at horizons the CPU holds in about two minutes
-@pytest.mark.parametrize("name,t", [(TOGGLE, 3.0), (GOUTSIAS, 10.0)])
+@pytest.mark.parametrize("name,t", [(TOGGLE, 3.0), (GOUTSIAS, 10.0),
+                                    (GOUTSIAS_BOX, 10.0)])
 def test_float32_reference_in_the_programs_place_fails(name, t):
     c = _short(name, t)
     params = [harness.parameters(c, 9, i)[0] for i in range(1, 9)]

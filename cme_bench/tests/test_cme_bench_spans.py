@@ -24,7 +24,7 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 #: the metrics that read the program's spans
 NEW = ("replay_host_us", "capture_ms_per_solve", "controller_us_per_attempt",
        "geometry_ms_per_solve", "ssa_ms_per_solve", "onestep_ms_per_solve",
-       "spmv_us_per_call")
+       "spmv_us_per_call", "drop_ms_per_solve", "read_ms_per_solve")
 CELLS = {"toggle-customprop.box-t100": 2.0, "goutsias6.table-t30": 4.0}
 
 #: (name, on_device, thread, start_us, end_us, correlation, linked)
